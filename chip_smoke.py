@@ -10,20 +10,26 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
 
   1. build: compile every kernel of the port from ``ocrs_tpu_torch/csrc``.
   2. kernel_vs_plain: each kernel against its plain PyTorch version on the
-     card, at the largest shape the main path gives it.
+     card, at the largest shape the main path gives it: one direction
+     (``gru_sequence``, forward and reverse) and both in one launch
+     (``bigru_sequence``, strided operands as the layer passes them).
   3. engine: ``OcrEngine(device="cuda").get_text`` on three pages (two from
      ``test-data`` and a wide one tiled from them) with the shipped detector
      and a CRNN recognizer at full width (hidden 192, random weights from
-     seed 0). Kernel launch counts are zeroed just before this run and read
+     seed 0): two GRU launches per recognition batch, one per bidirectional
+     layer. Kernel launch counts are zeroed just before this run and read
      just after it. The same engine then runs again with the GRU forced to
      its plain version: in bf16 (the main path) the log-probs must agree
      within a stated bound, and frames whose label flips at a near-tie are
      counted; with the recognizer in float32 both runs must decode the same
      text. The recognizer's float32 output on the card is held against the
      same network on the CPU on the first page's line batch.
-  4. times: CUDA-event medians of the kernel, its plain version and the
-     cuDNN GRU (``torch.nn.GRU``, timed as a yardstick only: the port never
-     calls it), the kernel's bound, and ``get_text`` wall time per page.
+  4. times: CUDA-event medians of the kernel (one and both directions), its
+     plain version, its two timing-only variants (the step-latency floor), the
+     bidirectional layer ``bigru_apply`` beside cuDNN's
+     ``torch.nn.GRU(bidirectional=True)`` on the same weights (a yardstick
+     only: the port never calls it), the kernel's bound, and ``get_text``
+     wall time per page.
 
 Then it prints the kernels line, the card's name and power limit, and, as
 the last line, ``{"ok": true, "device": {...}}``. A failed check exits with
@@ -47,8 +53,9 @@ REPO = Path(__file__).resolve().parent
 # bucket 2432 / downsample 4 = 608 frames, max_lines_per_batch = 20.
 GRU_T, GRU_N, GRU_H = 608, 20, 192
 # Kernel vs plain version, both float32: the same math with the [N, H] x
-# [H, 3H] sums taken in another order (an FMA chain per column against
-# cuBLAS), compounded over 608 dependent steps.
+# [H, 3H] sums taken in another order (split-TF32 tiles on the tensor cores,
+# eight partial sums over k, against cuBLAS) and the gates' exponentials from
+# __expf, compounded over 608 dependent steps.
 GRU_ATOL = 1e-4
 # Recognizer log-probs, bf16 activations, kernel vs plain GRU: the GRU outputs
 # differ in float32 rounding only, but are rounded to bf16 (2**-8 relative)
@@ -120,6 +127,21 @@ def gru_inputs(generator, device="cuda"):
     return xr, xz, xn, wh, bh
 
 
+def bigru_inputs(generator, device="cuda"):
+    """Operands of bigru_sequence as the layer passes them: the transposed
+    views of two [N, T, 3H] projections, then wh, bh of each direction."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(*shape, device=device, generator=generator)
+
+    xps = [randn(GRU_N, GRU_T, 3 * GRU_H).transpose(0, 1) for _ in range(2)]
+    rec = []
+    for _ in range(2):
+        rec += [randn(GRU_H, 3 * GRU_H) * (2.0 / GRU_H) ** 0.5, randn(3 * GRU_H) * 0.1]
+    return (*xps, *rec)
+
+
 def main() -> int:
     import torch
 
@@ -170,12 +192,21 @@ def main() -> int:
         errs["reverse" if reverse else "forward"] = float((got - want).abs().max())
         check(bool(torch.isfinite(got).all()), "gru_sequence output is finite")
         check(tuple(got.shape) == (GRU_T, GRU_N, GRU_H), "gru_sequence output shape")
+    bi_args = bigru_inputs(g)
+    bi_out = torch.full((GRU_N, GRU_T, 2 * GRU_H), float("nan"), device=dev)
+    gru.bigru_sequence(*bi_args, out=bi_out.transpose(0, 1))
+    bi_want = gru.bigru_sequence_reference(*bi_args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(bi_out).all()), "bigru_sequence output is finite")
+    for name, half in (("bigru_forward_half", slice(0, GRU_H)), ("bigru_reverse_half", slice(GRU_H, None))):
+        errs[name] = float((bi_out.transpose(0, 1)[..., half] - bi_want[..., half]).abs().max())
     max_err = max(errs.values())
-    check(max_err <= GRU_ATOL, f"gru_sequence vs plain: max |err| {max_err} <= {GRU_ATOL}")
+    check(max_err <= GRU_ATOL, f"GRU kernel vs plain: max |err| {max_err} <= {GRU_ATOL} ({errs})")
     emit(
         {
             "phase": "kernel_vs_plain",
-            "kernel": "gru_sequence",
+            "kernel": "gru_sequence, bigru_sequence",
+            "launch_plan": gru.launch_plan(GRU_N, GRU_H),
             "shape": {"T": GRU_T, "N": GRU_N, "H": GRU_H, "dtype": "float32"},
             "max_abs_err": errs,
             "atol": GRU_ATOL,
@@ -213,12 +244,15 @@ def main() -> int:
         torch.cuda.synchronize()
         return texts, batches
 
-    gru.gru_sequence.launches = 0
+    def gru_launches():
+        return gru.gru_sequence.launches + gru.bigru_sequence.launches
+
+    gru.gru_sequence.launches = gru.bigru_sequence.launches = 0
     texts, batches = run_pages()
-    launches = gru.gru_sequence.launches
+    launches = gru_launches()
     n_batches = sum(len(b) for b in batches.values())
     check(launches > 0, "the main path launched the GRU kernel")
-    check(launches == 4 * n_batches, f"4 GRU launches per recognition batch ({launches} for {n_batches})")
+    check(launches == 2 * n_batches, f"2 GRU launches per recognition batch ({launches} for {n_batches})")
 
     rec.net.plain_gru = True
     plain_texts, plain_batches = run_pages()
@@ -229,7 +263,7 @@ def main() -> int:
     rec.net.plain_gru = False
     f32_texts, _ = run_pages()
     rec.dtype = torch.bfloat16
-    check(gru.gru_sequence.launches > launches, "the float32 run launched the kernel")
+    check(gru_launches() > launches, "the float32 run launched the kernel")
 
     page_report = {}
     max_lp_diff = 0.0
@@ -290,29 +324,41 @@ def main() -> int:
     hook.remove()
 
     # 4. Times ------------------------------------------------------------------
-    kernel_ms = cuda_ms(lambda: gru.gru_sequence(*args), reps=20)
-    plain_ms = cuda_ms(lambda: gru.gru_sequence_reference(*args), reps=20)
-    flops = 2.0 * GRU_N * GRU_H * 3 * GRU_H * GRU_T
-    nbytes = 4.0 * (4 * GRU_T * GRU_N * GRU_H + 3 * GRU_H * GRU_H + 3 * GRU_H)
+    one_dir_ms = cuda_ms(lambda: gru.gru_sequence(*args), reps=20)
+    kernel_ms = cuda_ms(lambda: gru.bigru_sequence(*bi_args, out=bi_out.transpose(0, 1)), reps=20)
+    # The dependent chain without arithmetic: the same launch without the
+    # recurrent product, and with nothing but the exchange of h between the
+    # blocks of a cluster and the wait for it.
+    no_product_ms = cuda_ms(lambda: gru.bigru_sequence(*bi_args, timing_mode=1), reps=20)
+    sync_floor_ms = cuda_ms(lambda: gru.bigru_sequence(*bi_args, timing_mode=2), reps=20)
+    plain_ms = cuda_ms(lambda: gru.bigru_sequence_reference(*bi_args), reps=10)
+    # Both directions: f32 operations of the recurrent products; each input
+    # read once and the output written once.
+    flops = 2 * 2.0 * GRU_N * GRU_H * 3 * GRU_H * GRU_T
+    nbytes = 2 * 4.0 * (4 * GRU_T * GRU_N * GRU_H + 3 * GRU_H * GRU_H + 3 * GRU_H)
     bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
 
-    # Yardstick: cuDNN's GRU on the same weights, input projection included,
-    # beside the port's gru_apply (projection + kernel) on the same input.
-    layer = rec.net.gru1.fwd
+    # Yardstick, like for like: cuDNN's bidirectional GRU on the same weights,
+    # input projection included, beside the port's bigru_apply (two
+    # projections + one launch) on the same float32 input.
+    layer = rec.net.gru1
     x = torch.randn(GRU_N, GRU_T, GRU_H, device=dev, generator=g)
-    cudnn_gru = torch.nn.GRU(GRU_H, GRU_H, batch_first=True).to(dev)
+    cudnn_gru = torch.nn.GRU(GRU_H, GRU_H, batch_first=True, bidirectional=True).to(dev)
     with torch.no_grad():
-        cudnn_gru.weight_ih_l0.copy_(layer.wx.T)
-        cudnn_gru.weight_hh_l0.copy_(layer.wh.T)
-        cudnn_gru.bias_ih_l0.copy_(layer.bx)
-        cudnn_gru.bias_hh_l0.copy_(layer.bh)
+        for suffix, direction in (("", layer.fwd), ("_reverse", layer.bwd)):
+            getattr(cudnn_gru, "weight_ih_l0" + suffix).copy_(direction.wx.T)
+            getattr(cudnn_gru, "weight_hh_l0" + suffix).copy_(direction.wh.T)
+            getattr(cudnn_gru, "bias_ih_l0" + suffix).copy_(direction.bx)
+            getattr(cudnn_gru, "bias_hh_l0" + suffix).copy_(direction.bh)
     torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
         library_ms = cuda_ms(lambda: cudnn_gru(x), reps=20)
-        apply_ms = cuda_ms(lambda: gru.gru_apply(layer.params(), x), reps=20)
-        library_diff = float((cudnn_gru(x)[0] - gru.gru_apply(layer.params(), x)).abs().max())
+        apply_ms = cuda_ms(lambda: layer(x), reps=20)
+        apply_bf16_ms = cuda_ms(lambda: layer(x.to(torch.bfloat16)), reps=20)
+        library_diff = float((cudnn_gru(x)[0] - layer(x)).abs().max())
     torch.backends.cudnn.allow_tf32 = True
+    check(library_diff <= 1e-3, f"bigru_apply vs torch.nn.GRU(bidirectional=True) {library_diff} <= 1e-3")
 
     page_ms = {}
     with torch.inference_mode():
@@ -339,15 +385,20 @@ def main() -> int:
             "phase": "times",
             "card": smi,
             "gru_shape": {"T": GRU_T, "N": GRU_N, "H": GRU_H},
-            "gru_sequence_ms": kernel_ms,
-            "gru_sequence_reference_ms": plain_ms,
-            "gru_apply_ms": apply_ms,
-            "cudnn_gru_ms": library_ms,
-            "cudnn_gru_vs_gru_apply_max_abs_diff": library_diff,
+            "bigru_sequence_ms": kernel_ms,
+            "gru_sequence_ms": one_dir_ms,
+            "bigru_sequence_reference_ms": plain_ms,
+            "no_product_ms": no_product_ms,
+            "sync_floor_ms": sync_floor_ms,
+            "bigru_apply_ms": apply_ms,
+            "bigru_apply_bf16_ms": apply_bf16_ms,
+            "cudnn_bigru_ms": library_ms,
+            "cudnn_bigru_vs_bigru_apply_max_abs_diff": library_diff,
             "bound_ms": bound_ms,
             "bound_flops": flops,
             "bound_bytes": nbytes,
-            "bound_note": "f32 FMAs over 67 TFLOP/s; the 608 dependent steps are the real limit",
+            "bound_note": "both directions; f32 operations over 67 TFLOP/s (the kernel does them as "
+            "3 TF32 tensor-core products); the 608 dependent steps are the real limit, see sync_floor_ms",
             "get_text_ms": page_ms,
         }
     )
@@ -359,7 +410,7 @@ def main() -> int:
         {
             "kernels": [
                 {
-                    "name": "gru_sequence",
+                    "name": "bigru_sequence",
                     "route": "cuda",
                     "source": "ocrs_tpu_torch/csrc/gru_seq.cu",
                     "replaces": "ocrs_tpu/ops/gru_pallas.py:41",
@@ -370,9 +421,11 @@ def main() -> int:
                     "bound_ms": bound_ms,
                     "bound_by": bound_by,
                     "library_ms": library_ms,
-                    "library_call": "torch.nn.GRU(192, 192), input projection included; "
-                    "compare with gru_apply_ms",
-                    "gru_apply_ms": apply_ms,
+                    "library_call": "torch.nn.GRU(192, 192, bidirectional=True), input projections "
+                    "included; compare with layer_ms (bigru_apply: two projections + one launch)",
+                    "layer_ms": apply_ms,
+                    "one_direction_ms": one_dir_ms,
+                    "sync_floor_ms": sync_floor_ms,
                 }
             ]
         }

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -44,25 +44,27 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: building the CUDA kernels needs the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, extra: tuple[str, ...] = ()) -> Path:
     src = (_PKG / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + tuple(extra)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names=None) -> dict[str, dict]:
+def build(names=None, extra: tuple[str, ...] = ()) -> dict[str, dict]:
     """Build the named kernel libraries (all by default) that are not built
-    yet, one ``nvcc`` process per source, all started together. Returns
+    yet, one ``nvcc`` process per source, all started together. `extra` are
+    further ``nvcc`` flags (e.g. ``-DOCRS_GRU_PROFILE``); a library built with
+    them is a file of its own. Returns
     ``{name: {"seconds": s, "log": ptxas output}}`` for the ones built."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, extra)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG / SOURCES[name])]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(_PKG / SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs[name] = (proc, tmp, out, time.perf_counter())
     built = {}
@@ -75,10 +77,11 @@ def build(names=None) -> dict[str, dict]:
     return built
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, extra: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library `name` (with the `extra` flags), built first if needed."""
+    key = (name, tuple(extra))
+    lib = _loaded.get(key)
     if lib is None:
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        build([name], extra)
+        lib = _loaded[key] = ctypes.CDLL(str(library_path(name, extra)))
     return lib

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.gru import gru_apply
+from ..ops.gru import bigru_sequence, bigru_sequence_reference
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -89,12 +89,26 @@ class GRU(nn.Module):
 
 
 def bigru_apply(params: dict, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    """Bidirectional GRU over [N, T, C] -> [N, T, 2H]: forward and backward
-    states concatenated. `plain` swaps the CUDA sequence kernel for its
-    plain PyTorch version (a test switch; the CPU takes it anyway)."""
-    fwd = gru_apply(params["fwd"], x, reverse=False, plain=plain)
-    bwd = gru_apply(params["bwd"], x, reverse=True, plain=plain)
-    return torch.cat([fwd, bwd], dim=-1)
+    """Bidirectional GRU over [N, T, C] -> [N, T, 2H] in ``x.dtype``: forward
+    and backward states side by side.
+
+    Each direction's input projection runs in ``x.dtype`` (bf16 on the
+    inference path), then in float32 with ``bx`` added; both recurrences run
+    in float32 in one launch of :func:`..ops.gru.bigru_sequence`, which reads
+    the [N, T, 3H] projections in place and writes the halves of the
+    [N, T, 2H] result. `plain` swaps the CUDA sequence kernel for its plain
+    PyTorch version (a test switch; the CPU takes it anyway)."""
+    f32 = torch.float32
+    dirs = (params["fwd"], params["bwd"])
+    xps = [((x @ p["wx"].to(x.dtype)).to(f32) + p["bx"].to(f32)).transpose(0, 1) for p in dirs]
+    rec = [t for p in dirs for t in (p["wh"].to(f32).contiguous(), p["bh"].to(f32).contiguous())]
+    if plain:
+        return bigru_sequence_reference(*xps, *rec).transpose(0, 1).to(x.dtype)
+    n, t_len = x.shape[:2]
+    hidden = rec[0].shape[0]
+    out = torch.empty((n, t_len, 2 * hidden), dtype=f32, device=x.device)
+    bigru_sequence(*xps, *rec, out=out.transpose(0, 1))
+    return out.to(x.dtype)
 
 
 class BiGRU(nn.Module):
