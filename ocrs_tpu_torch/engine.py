@@ -8,9 +8,7 @@ Port of ``ocrs_tpu.engine`` (upstream ocrs/src/lib.rs:130-301):
 
 The engine runs on one ``torch.device``, CUDA unless the caller asks for
 another; asking for CUDA where there is none raises instead of falling back
-to the CPU. Options of the JAX engine that the port does not run yet stay in
-``OcrEngineParams`` and raise ``NotImplementedError`` when set away from
-their defaults, so they are never ignored.
+to the CPU. ``OcrEngineParams`` has the JAX engine's fields and defaults.
 """
 
 from __future__ import annotations
@@ -21,14 +19,21 @@ from typing import Callable, Literal, Optional, Sequence
 import numpy as np
 import torch
 
-from .detection import TextDetector, TextDetectorParams
+from .detection import RuleRect, TextDetector, TextDetectorParams, find_ink_rules
 from .errors import ModelNotLoadedError
 from .geometry import RotatedRect
-from .layout import find_text_lines
+from .layout import find_text_lines, is_vertical_line, merge_vertical_chains
 from .models.protocol import Model
 from .preprocess import ImageSource, prepare_image
-from .recognition import DecodeMethod, Greedy, RecognitionOpt, TextRecognizer, single_bucket
-from .text_items import TextLine
+from .recognition import (
+    DecodeMethod,
+    Greedy,
+    RecognitionOpt,
+    TextRecognizer,
+    arbitrate_word_gaps,
+    single_bucket,
+)
+from .text_items import TextChar, TextLine
 
 #: Characters the recognition model was trained on; label i (>=1) maps to
 #: DEFAULT_ALPHABET[i-1], label 0 is the CTC blank (lib.rs:33-34).
@@ -63,39 +68,45 @@ class OcrEngineParams:
     allowed_chars: Optional[str] = None
 
     detector_params: TextDetectorParams = field(default_factory=TextDetectorParams)
-    #: "host": scipy connected components + rotating calipers. The JAX
-    #: engine's default, "multigrid" (on-device labelling), is not ported yet.
-    detection_postprocess: Literal["host", "device", "multigrid"] = "host"
+    #: "host": exact scipy connected components + rotating calipers.
+    #: "device": labelling by pixel sweeps + segmented rect fitting on the
+    #: engine's device. "multigrid": the same with connectivity solved at half
+    #: resolution on the run graph.
+    detection_postprocess: Literal["host", "device", "multigrid"] = "multigrid"
     #: "model": post-process the model-resolution mask and scale the rects.
     #: "page": threshold the page-resolution probability map (upstream shape).
     detection_postprocess_resolution: Literal["page", "model"] = "model"
+    #: Run the detector on overlapping native-resolution tiles instead of
+    #: downscaling (keeps small text on very large pages).
     detection_tiled: bool = False
+    detection_tile_overlap: int = 64
     #: Maps a resized line width to its padded bucket width; None = one
-    #: bucket (one recognition batch per image).
+    #: bucket (one recognition batch per image). ``recognition.WIDTH_LADDER``
+    #: with ``ladder_bucket`` suits throughput batching and
+    #: ``recognition.reference_bucket`` gives upstream's multiples of 50.
     recognition_width_bucket: Optional[Callable[[int], int]] = None
     max_lines_per_batch: int = 20
+    #: Crop each line along its min-area ROTATED rect
+    #: (:func:`ops.warp.extract_line_batch_rotated`) so slanted text reaches
+    #: the recognizer upright. Char rects are the bounding boxes of the
+    #: slanted char slices. No upstream counterpart.
     deskew: bool = False
+    #: Vertical text (90-degree-rotated lines, e.g. a plot's y-axis label).
+    #: Layout assembles vertically stacked word fragments into vertical lines
+    #: (:func:`layout.merge_vertical_chains`); recognition crops them along
+    #: the rotated rect in BOTH reading directions and keeps the
+    #: higher-confidence decode.
     vertical_text: bool = False
+    #: Drop decoded lines whose character-frame confidence
+    #: (:func:`ops.ctc.text_confidence`) is below this, in (0, 1]; None = off.
     min_line_confidence: Optional[float] = None
+    #: Emit this glyph for ink rules (heading underlines, horizontal
+    #: separators) that the detector ignores, as upstream's pipeline decodes
+    #: them (:func:`detection.find_ink_rules`); None = off.
     rule_glyph: Optional[str] = None
+    #: Insert missing spaces at DETECTED word boundaries
+    #: (:func:`recognition.arbitrate_word_gaps`).
     detection_word_spaces: bool = False
-
-
-def _refuse_unported(params: OcrEngineParams) -> None:
-    unported = {
-        "decode_method=BeamSearch": not isinstance(params.decode_method, Greedy),
-        "deskew": params.deskew,
-        "vertical_text": params.vertical_text,
-        "min_line_confidence": params.min_line_confidence is not None,
-        "rule_glyph": params.rule_glyph is not None,
-        "detection_word_spaces": params.detection_word_spaces,
-        "detection_tiled": params.detection_tiled,
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: not ported to ocrs_tpu_torch yet (ROADMAP.md queue A, item 4)"
-        )
 
 
 class OcrInput:
@@ -111,7 +122,6 @@ class OcrEngine:
 
     def __init__(self, params: OcrEngineParams | None = None, *, device: torch.device | str | None = None):
         params = params or OcrEngineParams()
-        _refuse_unported(params)
         self.device = resolve_device(device)
         for model in (params.detection_model, params.recognition_model):
             if isinstance(model, torch.nn.Module):
@@ -122,6 +132,8 @@ class OcrEngine:
                 params.detector_params,
                 postprocess=params.detection_postprocess,
                 postprocess_resolution=params.detection_postprocess_resolution,
+                tiled=params.detection_tiled,
+                tile_overlap=params.detection_tile_overlap,
             )
             if params.detection_model is not None
             else None
@@ -131,11 +143,16 @@ class OcrEngine:
                 params.recognition_model,
                 width_bucket=params.recognition_width_bucket or single_bucket,
                 max_lines_per_batch=params.max_lines_per_batch,
+                deskew=params.deskew,
             )
             if params.recognition_model is not None
             else None
         )
         self._debug = params.debug
+        self._rule_glyph = params.rule_glyph
+        self._detection_word_spaces = params.detection_word_spaces
+        self._vertical_text = params.vertical_text
+        self._min_line_confidence = params.min_line_confidence
         self._decode_method = params.decode_method
         self._alphabet = params.alphabet or DEFAULT_ALPHABET
         # Label i (>=1) maps to alphabet[i-1] (lib.rs:153-170).
@@ -151,10 +168,17 @@ class OcrEngine:
         return OcrInput(prepare_image(image, self.device))
 
     def detect_words(self, input: OcrInput) -> list[RotatedRect]:
-        """Unordered oriented bounding rects of words (lib.rs:190-199)."""
+        """Unordered oriented bounding rects of words (lib.rs:190-199).
+
+        With ``rule_glyph`` set, ink rules the detector ignored are appended
+        as :class:`~.detection.RuleRect` entries, so layout orders them with
+        the text and recognition emits the configured glyph."""
         if self._detector is None:
             raise ModelNotLoadedError("Detection model not loaded")
-        return self._detector.detect_words(input.image)
+        words = self._detector.detect_words(input.image)
+        if self._rule_glyph is not None:
+            words = words + find_ink_rules(input.image, words)
+        return words
 
     def detect_text_pixels(self, input: OcrInput) -> torch.Tensor:
         """(H, W) per-pixel text probability map (lib.rs:201-214)."""
@@ -167,7 +191,10 @@ class OcrEngine:
     ) -> list[list[RotatedRect]]:
         """Group words into reading-order lines (lib.rs:216-229)."""
         del input  # kept for API parity
-        return find_text_lines(words)
+        lines = find_text_lines(words)
+        if self._vertical_text:
+            lines, _ = merge_vertical_chains(lines)
+        return lines
 
     def recognize_text(
         self, input: OcrInput, lines: Sequence[Sequence[RotatedRect]]
@@ -176,16 +203,45 @@ class OcrEngine:
         (lib.rs:231-254)."""
         if self._recognizer is None:
             raise ModelNotLoadedError("Recognition model not loaded")
-        return self._recognizer.recognize_text_lines(
+        # Lines made of ink rules take the configured glyph instead of a
+        # model pass.
+        rule_lines: dict[int, TextLine] = {}
+        if self._rule_glyph is not None:
+            rule_lines = {
+                i: TextLine([TextChar(self._rule_glyph, r.bounding_rect()) for r in ws])
+                for i, ws in enumerate(lines)
+                if ws and all(isinstance(r, RuleRect) for r in ws)
+            }
+        model_lines = [(i, ws) for i, ws in enumerate(lines) if i not in rule_lines]
+        lines_to_run = [ws for _, ws in model_lines]
+        vertical = None
+        if self._vertical_text:
+            vertical = [is_vertical_line(ws) for ws in lines_to_run]
+        recognized = self._recognizer.recognize_text_lines(
             input.image,
-            lines,
+            lines_to_run,
             RecognitionOpt(
                 debug=self._debug,
                 decode_method=self._decode_method,
                 alphabet=self._alphabet,
                 excluded_char_labels=self._excluded_char_labels,
+                min_line_confidence=self._min_line_confidence,
             ),
+            vertical=vertical,
         )
+        if self._detection_word_spaces:
+            recognized = [
+                tl if (vertical is not None and vertical[i]) else arbitrate_word_gaps(lines_to_run[i], tl)
+                for i, tl in enumerate(recognized)
+            ]
+        if not rule_lines:
+            return recognized
+        out: list[Optional[TextLine]] = [None] * len(lines)
+        for (i, _), tl in zip(model_lines, recognized):
+            out[i] = tl
+        for i, tl in rule_lines.items():
+            out[i] = tl
+        return out
 
     def prepare_recognition_input(
         self, input: OcrInput, line: Sequence[RotatedRect]

@@ -14,6 +14,8 @@ it, which has identical semantics (upstream layout_analysis.rs):
     the Shafait tall-rect score (layout_analysis.rs:83-155).
   * :func:`find_text_lines` -- separator-aware line grouping + greedy
     paragraph clustering into reading order (layout_analysis.rs:158-232).
+  * :func:`is_vertical_line`, :func:`merge_vertical_chains` -- the
+    vertical-text post-pass (no upstream counterpart).
 """
 
 from __future__ import annotations
@@ -384,3 +386,117 @@ def find_text_lines(words: Sequence[RotatedRect]) -> list[list[RotatedRect]]:
             prev = cand
         result.extend(para)
     return [[words[i] for i in lines_idx[k]] for k in result]
+
+
+# ---------------------------------------------------------------------------
+# Vertical text (no upstream counterpart)
+# ---------------------------------------------------------------------------
+
+#: Geometry gates for treating a word stack as a vertical text line.
+VERTICAL_MIN_ASPECT = 2.5  # chain bbox height >= 2.5x its width
+VERTICAL_SINGLE_ASPECT = 4.0  # a lone word needs to be clearly tall
+VERTICAL_MIN_WIDTH = 6.0  # px; thinner stacks are rules/noise, not glyphs
+
+
+def is_vertical_line(words: Sequence[RotatedRect]) -> bool:
+    """True when a line's geometry says "rotated text": the word-union
+    bounding box is much taller than wide. Detectors trained on horizontal
+    text fragment a 90°-rotated line into a vertical stack of glyph blobs;
+    :func:`merge_vertical_chains` assembles the stack and this predicate is
+    the shared gate (also used by recognition to route such lines through
+    the rotated-warp crop instead of the axis-aligned one)."""
+    boxes = _bounding_rects(words)
+    t, l = boxes[:, 0].min(), boxes[:, 1].min()
+    b, r = boxes[:, 2].max(), boxes[:, 3].max()
+    w, h = r - l, b - t
+    if w < VERTICAL_MIN_WIDTH:
+        return False
+    if len(words) == 1:
+        return h >= VERTICAL_SINGLE_ASPECT * w
+    return h >= VERTICAL_MIN_ASPECT * w
+
+
+def merge_vertical_chains(
+    lines: list[list[RotatedRect]],
+) -> tuple[list[list[RotatedRect]], list[bool]]:
+    """Post-pass over :func:`find_text_lines` output: assemble vertically
+    stacked single-word lines into vertical text lines (90°-rotated text,
+    e.g. a plot's y-axis label). Returns ``(lines, is_vertical)`` where each
+    assembled chain replaces its topmost member's slot and the member slots
+    are dropped; all other lines pass through unchanged.
+
+    Only SINGLE-word lines are candidates (a word that chained horizontally
+    with a neighbour is ordinary text), and a chain is kept only when its
+    union box passes :func:`is_vertical_line` — a digits column in a table
+    does not, because its row pitch exceeds the chaining gap (1.2x the
+    member width, the scale of rotated-glyph spacing)."""
+    if not lines:
+        return lines, []
+    cand: list[tuple[int, np.ndarray]] = []  # (line slot, tlbr box)
+    for k, ws in enumerate(lines):
+        if len(ws) == 1:
+            b = _bounding_rects(ws)[0]
+            cand.append((k, b))
+    if len(cand) < 2:
+        return lines, [False] * len(lines)
+
+    cand.sort(key=lambda kb: (kb[1][0] + kb[1][2]) / 2.0)  # by centre y
+    chains: list[list[int]] = []  # indices into cand
+    open_chains: list[int] = []  # chain ids still accepting members
+    for i, (_, box) in enumerate(cand):
+        t, l, b, r = box
+        w = r - l
+        attached = False
+        for cid in open_chains:
+            _, last = cand[chains[cid][-1]]
+            lw = last[3] - last[1]
+            x_overlap = min(r, last[3]) - max(l, last[1])
+            gap = t - last[2]
+            # Rotated-glyph blobs overlap vertically (ascender/descender
+            # boxes of adjacent glyphs interleave): allow up to ~half a
+            # member of overlap, not a fixed 4 px — a matplotlib y-label's
+            # stack breaks into fragments otherwise.
+            if (
+                x_overlap >= min(4.0, 0.8 * min(w, lw))
+                and -0.6 * max(w, lw) <= gap <= 1.2 * max(w, lw)
+            ):
+                chains[cid].append(i)
+                attached = True
+                break
+        if not attached:
+            chains.append([i])
+            open_chains.append(len(chains) - 1)
+        # Chains whose last member is far above the sweep line can be closed
+        # (candidates arrive in y order); keeps the scan near-linear.
+        def _alive(cid: int) -> bool:
+            last_box = cand[chains[cid][-1]][1]
+            return t - last_box[2] <= 1.2 * max(last_box[3] - last_box[1], w, 1.0)
+
+        open_chains = [cid for cid in open_chains if _alive(cid)]
+
+    drop: set[int] = set()
+    replace: dict[int, list[RotatedRect]] = {}
+    for chain in chains:
+        if len(chain) < 2:
+            continue
+        slots = [cand[i][0] for i in chain]
+        members = [lines[s][0] for s in slots]
+        if not is_vertical_line(members):
+            continue
+        top_slot = min(slots)
+        replace[top_slot] = members
+        drop.update(s for s in slots if s != top_slot)
+
+    out: list[list[RotatedRect]] = []
+    vertical: list[bool] = []
+    for k, ws in enumerate(lines):
+        if k in drop:
+            continue
+        if k in replace:
+            out.append(replace[k])
+            vertical.append(True)
+        else:
+            out.append(ws)
+            # A lone tall word the detector kept whole is vertical too.
+            vertical.append(len(ws) == 1 and is_vertical_line(ws))
+    return out, vertical

@@ -71,6 +71,51 @@ class Dense(nn.Module):
         return x @ self.w.to(x.dtype) + self.b.to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis as the JAX package's ``_ln_apply`` does
+    it: in float32 with the biased variance and eps inside the root, scaled
+    and shifted in float32, then cast back to the activation dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(dim), requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(dim), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + self.eps) * self.g + self.b
+        return out.to(x.dtype)
+
+
+class DepthwiseConv1d(nn.Module):
+    """Depthwise 1-D convolution along the sequence axis of [N, T, C] with
+    XLA ``"SAME"`` padding (odd k: ``(k - 1) / 2 * dilation`` on each side);
+    weight ``w`` is ``[C, 1, k]``, no kernel flip."""
+
+    def __init__(self, dim: int, k: int, generator=None):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(dim, 1, k), requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(dim), requires_grad=False)
+        if generator is not None:
+            # He-style init over the k taps of each channel, drawn as WIO.
+            wio = torch.randn((k, 1, dim), generator=generator) * math.sqrt(2.0 / k)
+            self.w.copy_(wio.permute(2, 1, 0))
+
+    def forward(self, x: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+        dim, _, k = self.w.shape
+        out = F.conv1d(
+            x.transpose(1, 2),
+            self.w.to(x.dtype),
+            padding=(k - 1) // 2 * dilation,
+            dilation=dilation,
+            groups=dim,
+        )
+        return out.transpose(1, 2) + self.b.to(x.dtype)
+
+
 class GRU(nn.Module):
     """One GRU direction; fused gate matrices in order r, z, n."""
 

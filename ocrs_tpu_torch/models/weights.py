@@ -8,11 +8,15 @@ plus a ``__meta__`` record of UTF-8 JSON.
 ``nn.Module`` state dicts:
 
   * HWIO conv kernels -> OIHW (``F.conv2d``'s layout);
+  * ConvCTC's depthwise kernels ``dw/w [k, 1, dim]`` (WIO) -> ``[dim, 1, k]``
+    (``F.conv1d``'s layout with ``groups=dim``);
   * dense ``w [in, out]`` is KEPT as ``[in, out]``: the port's ``Dense``
     computes ``x @ w`` as the JAX package does, so no transpose is needed;
   * GRU ``wx [C, 3H]``, ``wh [H, 3H]``, ``bx``, ``bh`` are kept as they are,
     gate order r, z, n;
-  * biases are kept.
+  * biases and LayerNorm ``g``/``b`` are kept.
+
+The map goes by key as well as by rank: only a leaf named ``w`` is a kernel.
 """
 
 from __future__ import annotations
@@ -90,9 +94,12 @@ def params_from_jax(params: Any) -> dict[str, torch.Tensor]:
     state = {}
     for key, arr in flat.items():
         arr = np.asarray(arr, dtype=np.float32)
-        if arr.ndim == 4:  # HWIO -> OIHW
+        path = key.split(".")
+        if path[-1] == "w" and arr.ndim == 4:  # HWIO -> OIHW
             arr = np.transpose(arr, (3, 2, 0, 1))
-        state[key] = torch.tensor(arr)
+        elif path[-2:] == ["dw", "w"] and arr.ndim == 3:  # WIO -> [dim, 1, k]
+            arr = np.transpose(arr, (2, 1, 0))
+        state[key] = torch.tensor(np.ascontiguousarray(arr))
     return state
 
 

@@ -1,9 +1,9 @@
 """Batched text-line extraction on the engine's device.
 
-Port of the axis-aligned path of ``ocrs_tpu.ops.warp`` as plain tensor code
-(``pad_chain``, ``extract_line_batch_packed``, ``_extract_impl``,
-``_sample_coords``, ``_band_mask``). A whole batch of lines is cut from the
-page at once:
+Port of ``ocrs_tpu.ops.warp`` as plain tensor code (``pad_chain``,
+``extract_line_batch_packed``, ``_extract_impl``, ``_sample_coords``,
+``_band_mask``, ``extract_line_batch_rotated``). A whole batch of lines is cut
+from the page at once:
 
   * separable bilinear resampling: a row-gather pass (vertical), then a
     column-gather pass (horizontal), with the half-pixel law of
@@ -12,8 +12,9 @@ page at once:
     polygons are x-monotone ribbons, so the even-odd fill reduces to a
     per-column [ytop(x), ybot(x)] band.
 
-The rotated (deskew) extraction and the page-stack form are not ported yet
-(ROADMAP queue A, items 4 and 6).
+:func:`extract_line_batch_rotated` instead samples along a rotated rect's
+own axes (deskew, vertical text), four taps per output pixel. The page-stack
+form of the axis-aligned path arrives with the page pipeline.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def extract_line_batch_packed(
     ``left + (x + 0.5) * line_width / resized_width - 0.5``, rows likewise;
     columns beyond ``resized_width`` are BLACK padding."""
     if page.dim() != 2:
-        raise NotImplementedError("page stacks are not ported yet; pass one [H, W] page")
+        raise NotImplementedError("page stacks arrive with the page pipeline; pass one [H, W] page")
     tops, lefts, heights, line_widths, resized_widths = (geom[i] for i in range(5))
     return _extract_impl(
         page, tops, lefts, heights, line_widths, resized_widths,
@@ -153,4 +154,69 @@ def _extract_impl(
         top_chain, bot_chain, ph, pw, out_h, out_w,
     )
     out = torch.where(mask, samples, torch.full_like(samples, BLACK_VALUE))
+    return out[:, None, :, :]
+
+
+def extract_line_batch_rotated(
+    page: torch.Tensor,  # [H, W] or [P, H, W] normalized greyscale page(s)
+    geom: torch.Tensor,  # [10, N] f32: ox, oy, rx, ry, dx, dy, w, h, rwidth, page
+    *,
+    out_h: int,
+    out_w: int,
+) -> torch.Tensor:
+    """Deskewing line extraction: sample along a ROTATED rect's own axes so
+    slanted text lands axis-aligned in the crop -> [N, 1, out_h, out_w].
+
+    Per line the geometry columns are: ``(ox, oy)`` the page coordinates of
+    the rect's top-left corner, ``(rx, ry)`` the unit axis along the text
+    direction, ``(dx, dy)`` the unit axis down the glyphs, ``(w, h)`` the
+    rect extents along those axes, ``rwidth`` the resized content width
+    (columns beyond it are BLACK padding), and the page index for stacks.
+    Output pixel (r, c) samples page position
+
+        (ox, oy) + lx * (rx, ry) + ly * (dx, dy),
+        lx = (c + 0.5) * w / rwidth - 0.5,   ly = (r + 0.5) * h / out_h - 0.5
+
+    (the half-pixel bilinear law of the axis-aligned path). Samples outside
+    the page are BLACK. There is no polygon band mask: the rotated rect
+    itself is the tight region."""
+    ox, oy, rx, ry, dx, dy, w, h, rwidth, pidx_f = (geom[i] for i in range(10))
+    ph, pw = page.shape[-2], page.shape[-1]
+
+    ys = torch.arange(out_h, dtype=torch.float32, device=geom.device)
+    xs = torch.arange(out_w, dtype=torch.float32, device=geom.device)
+    lx = (xs[None, :] + 0.5) * (w[:, None] / rwidth[:, None].clamp_min(1.0)) - 0.5
+    lx = torch.minimum(lx.clamp_min(0.0), (w[:, None] - 1.0).clamp_min(0.0))  # [N, out_w]
+    ly = (ys[None, :] + 0.5) * (h[:, None] / out_h) - 0.5
+    ly = torch.minimum(ly.clamp_min(0.0), (h[:, None] - 1.0).clamp_min(0.0))  # [N, out_h]
+
+    # Page sample positions [N, out_h, out_w].
+    px = ox[:, None, None] + lx[:, None, :] * rx[:, None, None] + ly[:, :, None] * dx[:, None, None]
+    py = oy[:, None, None] + lx[:, None, :] * ry[:, None, None] + ly[:, :, None] * dy[:, None, None]
+
+    x0 = torch.floor(px)
+    y0 = torch.floor(py)
+    fx = px - x0
+    fy = py - y0
+    x0i = x0.to(torch.int64).clamp(0, pw - 1)
+    x1i = (x0i + 1).clamp(0, pw - 1)
+    y0i = y0.to(torch.int64).clamp(0, ph - 1)
+    y1i = (y0i + 1).clamp(0, ph - 1)
+
+    flat = page.reshape(-1)
+    base = (pidx_f.to(torch.int64) * (ph * pw))[:, None, None] if page.dim() == 3 else 0
+    v00 = flat[base + y0i * pw + x0i]
+    v01 = flat[base + y0i * pw + x1i]
+    v10 = flat[base + y1i * pw + x0i]
+    v11 = flat[base + y1i * pw + x1i]
+    samples = (
+        v00 * (1.0 - fy) * (1.0 - fx)
+        + v01 * (1.0 - fy) * fx
+        + v10 * fy * (1.0 - fx)
+        + v11 * fy * fx
+    )
+
+    in_page = (px >= 0.0) & (px <= pw - 1.0) & (py >= 0.0) & (py <= ph - 1.0)
+    valid_col = xs[None, None, :] < rwidth[:, None, None]
+    out = torch.where(in_page & valid_col, samples, torch.full_like(samples, BLACK_VALUE))
     return out[:, None, :, :]

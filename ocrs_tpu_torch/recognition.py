@@ -1,23 +1,24 @@
-"""Text recognition: batched line extraction, CRNN forward, greedy CTC decoding.
+"""Text recognition: batched line extraction, recognizer forward, CTC decoding.
 
-Port of the greedy, axis-aligned branch of ``ocrs_tpu.recognition``
-(upstream ocrs/src/recognition.rs:404-561):
+Port of ``ocrs_tpu.recognition`` (upstream ocrs/src/recognition.rs:404-561):
 
   * per line: the line polygon from its word rects (top edges left to right,
     bottom edges right to left), and the resized width
     ``clamp(height * aspect, 10, 2400)``;
-  * lines are grouped by bucketed width and chunked into batches;
+  * lines are grouped by bucketed width (and by whether they are cropped
+    along a rotated rect) and chunked into batches;
   * every line of a batch is extracted on the device in one call
-    (:func:`ops.warp.extract_line_batch_packed`), cast to bf16 and run
-    through the recognizer (``[N,1,H,W] -> [seq,N,classes]``, transposed to
-    batch-major);
-  * excluded characters are masked to -inf, then greedy CTC: argmax on the
-    device, collapse on the host;
+    (:func:`ops.warp.extract_line_batch_packed`, or
+    :func:`ops.warp.extract_line_batch_rotated` for deskewed and vertical
+    lines), cast to bf16 and run through the recognizer
+    (``[N,1,H,W] -> [seq,N,classes]``, transposed to batch-major);
+  * excluded characters are masked to -inf, then CTC: greedy (argmax on the
+    device, collapse on the host) or beam search (per-frame top-k on the
+    device, prefix beam on the host);
+  * every batch's device work and its copy to the host are started before
+    any copy is waited for;
   * decoded steps map back to per-character image rects through the CTC
     downsample factor and the width scale (recognition.rs:241-311).
-
-Beam search, deskew and vertical text are not ported yet (ROADMAP queue A,
-item 4).
 """
 
 from __future__ import annotations
@@ -30,11 +31,22 @@ import numpy as np
 import torch
 
 from .errors import WrongOutputError
-from .geometry import Rect, RotatedRect, bounding_rect
+from .geometry import Rect, RotatedRect, bounding_rect, min_area_rect
 from .models.protocol import Model, fixed_height_or
-from .ops.ctc import CtcStep, collapse_greedy_batch, greedy_labels_u8, mask_excluded
+from .ops.ctc import (
+    BEAM_EMISSION_GAP,
+    CtcStep,
+    beam_candidate_k,
+    beam_decode_topk,
+    beam_topk_packed,
+    collapse_greedy_batch,
+    greedy_labels_u8,
+    mask_excluded,
+    text_confidence,
+    unpack_topk,
+)
 from .ops.resize import _interp_matrix
-from .ops.warp import extract_line_batch_packed, pad_chain
+from .ops.warp import extract_line_batch_packed, extract_line_batch_rotated, pad_chain
 from .preprocess import BLACK_VALUE
 from .text_items import TextChar, TextLine
 
@@ -46,8 +58,6 @@ class Greedy:
 
 @dataclass(frozen=True)
 class BeamSearch:
-    """Declared for API parity; the port does not run it yet."""
-
     width: int = 100
 
 
@@ -62,6 +72,11 @@ class RecognitionOpt:
     decode_method: DecodeMethod = field(default_factory=Greedy)
     alphabet: str = ""
     excluded_char_labels: Optional[Sequence[int]] = None
+    #: Drop decoded lines whose character-frame confidence
+    #: (:func:`ops.ctc.text_confidence`) is below this, in (0, 1]. Suppresses
+    #: graphics strokes that the detector boxed and the recognizer "read" as
+    #: low-probability glyph soup. None = off (default).
+    min_line_confidence: Optional[float] = None
 
 
 MIN_LINE_WIDTH = 10.0
@@ -113,6 +128,19 @@ def line_polygon(words: Sequence[RotatedRect]) -> np.ndarray:
     top_pts = np.stack([left[:, 0], right[:, 0]], axis=1).reshape(2 * k, 2)
     bot_pts = np.stack([right[:, 1], left[:, 1]], axis=1)[::-1].reshape(2 * k, 2)
     return np.floor(np.concatenate([top_pts, bot_pts])).astype(np.int64)
+
+
+def line_rotated_rect(words: Sequence[RotatedRect]) -> RotatedRect:
+    """Min-area rotated rect over a line's word corners, oriented so the
+    height axis points up (toward -y): the deskewing counterpart of the
+    axis-aligned ``_line_rect``. For a straight line of axis-aligned words it
+    equals their union bounding rect; for a skewed line it follows the text
+    angle, so :func:`ops.warp.extract_line_batch_rotated` samples the glyphs
+    upright."""
+    pts = np.concatenate([np.stack(w.corners()) for w in words])
+    r = min_area_rect(pts)
+    assert r is not None, "line has no words"
+    return r.orient_towards((0.0, -1.0))
 
 
 def _round_half_away(y: np.ndarray) -> np.ndarray:
@@ -168,6 +196,32 @@ def polygon_slice_bounding_rects(
         Rect.from_tlbr(top[c], left[c], bottom[c], right[c]) if any_edge[c] else None
         for c in range(len(ranges))
     ]
+
+
+def reference_bucket(width: int) -> int:
+    """Upstream's bucket law: next multiple of 50 (recognition.rs:437)."""
+    return ((width + 49) // 50) * 50
+
+
+#: Width-bucket ladders in multiples of 128. Decoded characters falling in
+#: the BLACK right-padding are clipped (recognition.rs:271-276). For a
+#: recurrent recognizer the padding is not fully inert (a backward GRU walks
+#: the padding frames before it reaches content); ConvCTC is local, so its
+#: output at content frames does not depend on the padding length.
+WIDTH_LADDER: tuple[int, ...] = (128, 256, 384, 512, 768, 1024, 1536, 2048, 2432)
+COARSE_WIDTH_LADDER: tuple[int, ...] = (1216, 2432)
+
+
+def ladder_bucket(ladder: Sequence[int]) -> Callable[[int], int]:
+    lad = sorted(ladder)
+
+    def bucket(width: int) -> int:
+        for w in lad:
+            if width <= w:
+                return w
+        return lad[-1]
+
+    return bucket
 
 
 def single_bucket(width: int) -> int:
@@ -259,6 +313,14 @@ class _RecLine:
     poly: np.ndarray  # (V, 2) int polygon
     rect: Rect  # integral bounding rect of the polygon
     resized_width: int
+    #: Deskew/vertical mode: the line's min-area rotated rect. When set, the
+    #: crop samples along this rect's axes and char rects are mapped back
+    #: through the rotation.
+    rrect: Optional[RotatedRect] = None
+    #: Vertical-text direction voting: 0 = bottom-up reading, 1 = top-down.
+    #: Both variants of one line share ``index``; the decode with the higher
+    #: mean per-frame confidence wins. -1 = not a voting variant.
+    variant: int = -1
 
 
 @dataclass
@@ -267,6 +329,35 @@ class _LineResult:
     rec_input_len: int
     ctc_input_len: int
     steps: list[CtcStep]
+    #: Mean over frames of the max log-probability (only read back for
+    #: direction-voting batches; 0.0 otherwise).
+    conf: float = 0.0
+
+
+class _HostCopies:
+    """Copies of device tensors to the host, started at construction and
+    waited for at :meth:`numpy`. On CUDA the copies go to pinned memory
+    without blocking and one event marks their end: the bytes may only be
+    read after the event, so the wait is explicit. On the CPU there is
+    nothing to copy."""
+
+    def __init__(self, tensors: Sequence[Optional[torch.Tensor]]):
+        self._event = None
+        self._host: list[Optional[torch.Tensor]] = []
+        for t in tensors:
+            if t is not None and t.device.type == "cuda":
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                t = host
+                self._event = self._event or torch.cuda.Event()
+            self._host.append(t)
+        if self._event is not None:
+            self._event.record()
+
+    def numpy(self) -> list[Optional[np.ndarray]]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [None if t is None else t.numpy() for t in self._host]
 
 
 #: Maximum vertices per padded polygon chain (= max words per line times 2;
@@ -282,11 +373,16 @@ class TextRecognizer:
         model: Model,
         width_bucket: Optional[Callable[[int], int]] = None,
         max_lines_per_batch: int = 20,
+        deskew: bool = False,
     ):
         self._model = model
         self._input_height = fixed_height_or(model.input_shape(), default=50)
-        self._bucket = width_bucket or single_bucket
+        self._bucket = width_bucket or ladder_bucket(WIDTH_LADDER)
         self._max_lines = max_lines_per_batch
+        #: Deskew mode (no upstream counterpart): crop each line along its
+        #: min-area rotated rect so slanted text reaches the recognizer
+        #: upright. Upstream's crops are always axis-aligned.
+        self._deskew = deskew
 
     @property
     def input_height(self) -> int:
@@ -321,15 +417,35 @@ class TextRecognizer:
         image: torch.Tensor,
         lines: Sequence[Sequence[RotatedRect]],
         opts: RecognitionOpt,
+        vertical: Optional[Sequence[bool]] = None,
     ) -> list[Optional[TextLine]]:
-        if not isinstance(opts.decode_method, Greedy):
-            raise NotImplementedError("beam search is not ported yet: ROADMAP.md queue A, item 4")
         if image.dim() != 3 or image.shape[0] != 1:
             raise ValueError(f"expected (1, H, W) image, got {tuple(image.shape)}")
         page = image[0]
 
         rec_lines: list[_RecLine] = []
         for index, words in enumerate(lines):
+            if vertical is not None and vertical[index]:
+                # Vertical text (90-degree-rotated, e.g. a plot's y-axis
+                # label): crop along the stack's min-area rect in BOTH
+                # reading directions, bottom-up (glyph tops point left, the
+                # typographic convention) and top-down, and let decode
+                # confidence pick the winner.
+                mr = min_area_rect(np.concatenate([np.stack(w.corners()) for w in words]))
+                assert mr is not None, "line has no words"
+                for variant, up in enumerate(((-1.0, 0.0), (1.0, 0.0))):
+                    rr = mr.orient_towards(up)
+                    rec_lines.append(
+                        _RecLine(
+                            index=index,
+                            poly=np.round(np.stack(rr.corners())).astype(np.int64),
+                            rect=rr.bounding_rect().integral_bounding_rect(),
+                            resized_width=resized_line_width(rr.width, rr.height, self._input_height),
+                            rrect=rr,
+                            variant=variant,
+                        )
+                    )
+                continue
             poly = line_polygon(words)
             # The POLYGON's bounding rect is the coordinate base for the crop
             # and the char-rect back-mapping (recognition.rs:248-249); the
@@ -341,6 +457,22 @@ class TextRecognizer:
                 float(poly[:, 1].max()),
                 float(poly[:, 0].max()),
             )
+            if self._deskew:
+                # Geometry follows the line's min-area rotated rect, both the
+                # crop sampling and the width law, so a slanted line's
+                # resized width reflects its true length, not its (taller,
+                # shorter) bounding box.
+                rrect = line_rotated_rect(words)
+                rec_lines.append(
+                    _RecLine(
+                        index=index,
+                        poly=poly,
+                        rect=rect,
+                        resized_width=resized_line_width(rrect.width, rrect.height, self._input_height),
+                        rrect=rrect,
+                    )
+                )
+                continue
             lr = self._line_rect(words)
             rec_lines.append(
                 _RecLine(
@@ -353,27 +485,34 @@ class TextRecognizer:
 
         # Bucket by padded width, then chunk into batches. Each batch's
         # compute width is trimmed to its widest line, rounded up to 128.
-        groups: dict[int, list[_RecLine]] = {}
+        groups: dict[tuple[int, bool], list[_RecLine]] = {}
         for rl in rec_lines:
-            groups.setdefault(self._bucket(rl.resized_width), []).append(rl)
-        batches: list[tuple[int, list[_RecLine]]] = []
-        for width, group in groups.items():
+            key = (self._bucket(rl.resized_width), rl.rrect is not None)
+            groups.setdefault(key, []).append(rl)
+        batches: list[tuple[int, list[_RecLine], bool]] = []
+        for (width, rotated), group in groups.items():
             for i in range(0, len(group), self._max_lines):
                 chunk = group[i : i + self._max_lines]
                 w_eff = min(
                     width,
                     max(-(-max(rl.resized_width for rl in chunk) // 128) * 128, 128),
                 )
-                batches.append((w_eff, chunk))
+                batches.append((w_eff, chunk, rotated))
 
         excluded = (
             sorted(set(opts.excluded_char_labels)) if opts.excluded_char_labels else None
         )
-        results: list[_LineResult] = []
-        for group_width, batch in batches:
+        greedy = isinstance(opts.decode_method, Greedy)
+
+        # Phase 1: start every batch's device work (extraction, model, decode
+        # reduction) and its copy to the host without waiting. Phase 2 waits
+        # for each copy and finishes the decode on the host.
+        inflight = []
+        n_classes = 0
+        for group_width, batch, rotated in batches:
             if opts.debug:
                 print(f"Processing group of {len(batch)} lines of width {group_width}")
-            logprobs = self._run_batch(page, batch, group_width)  # [N, T, C]
+            logprobs = self._run_batch(page, batch, group_width, rotated)  # [N, T, C]
             n_classes = logprobs.shape[-1]
             if len(opts.alphabet) + 1 != n_classes:
                 raise WrongOutputError(
@@ -384,48 +523,177 @@ class TextRecognizer:
                 onehot = torch.zeros(n_classes, dtype=torch.bool, device=logprobs.device)
                 onehot[[e for e in excluded if e < n_classes]] = True
                 logprobs = mask_excluded(logprobs, onehot)
-            labels = greedy_labels_u8(logprobs).cpu().numpy()
-            for rl, steps in zip(batch, collapse_greedy_batch(labels)):
+            # u8 labels for greedy; the beam reads back only the per-frame
+            # top-k candidates, which is all it ever looks at.
+            if greedy:
+                out = greedy_labels_u8(logprobs)
+            else:
+                out = beam_topk_packed(
+                    logprobs,
+                    k=beam_candidate_k(opts.decode_method.width, n_classes),
+                    gap=BEAM_EMISSION_GAP,
+                )
+            # Direction-voting batches also read back a per-line confidence
+            # (mean over frames of the max log-prob).
+            conf_dev = None
+            if any(rl.variant >= 0 for rl in batch):
+                conf_dev = logprobs.amax(dim=-1).mean(dim=1)
+            tconf_dev = None
+            if opts.min_line_confidence is not None:
+                tconf_dev = text_confidence(logprobs)
+            copies = _HostCopies((out, conf_dev, tconf_dev))
+            inflight.append((group_width, batch, int(logprobs.shape[1]), copies))
+
+        results: list[_LineResult] = []
+        for group_width, batch, ctc_input_len, copies in inflight:
+            host, conf, tconf = copies.numpy()
+            if greedy:
+                decoded = collapse_greedy_batch(host[: len(batch)])
+            else:
+                k = beam_candidate_k(opts.decode_method.width, n_classes)
+                vals, idx = unpack_topk(host[: len(batch)], k)
+                decoded = beam_decode_topk(vals, idx, opts.decode_method.width, n_classes)
+            if conf is None:
+                conf = np.zeros(len(batch), dtype=np.float32)
+            if tconf is None:
+                tconf = np.ones(len(batch), dtype=np.float32)
+            for rl, steps, c, tc in zip(batch, decoded, conf, tconf):
+                if opts.min_line_confidence is not None and steps and tc < opts.min_line_confidence:
+                    steps = []  # low-confidence glyph soup: emit nothing
                 results.append(
                     _LineResult(
                         line=rl,
                         rec_input_len=group_width,
-                        ctc_input_len=int(logprobs.shape[1]),
+                        ctc_input_len=ctc_input_len,
                         steps=steps,
+                        conf=float(c),
                     )
                 )
 
+        results = _pick_direction_variants(results)
         results.sort(key=lambda r: r.line.index)
         return _text_lines_from_results(results, opts.alphabet)
 
-    def _run_batch(self, page: torch.Tensor, batch: list[_RecLine], group_width: int) -> torch.Tensor:
+    def _run_batch(
+        self, page: torch.Tensor, batch: list[_RecLine], group_width: int, rotated: bool = False
+    ) -> torch.Tensor:
         n = len(batch)
         n_pad = _pad_batch_size(n, self._max_lines)
-        geom = np.empty((6, n_pad), dtype=np.float32)
-        for col, rl in enumerate(batch):
-            geom[:, col] = (
-                rl.rect.top, rl.rect.left, rl.rect.height, rl.rect.width, rl.resized_width, 0.0,
+        if rotated:
+            geom = np.empty((10, n_pad), dtype=np.float32)
+            for col, rl in enumerate(batch):
+                rr = rl.rrect
+                right, down = rr.right_axis(), -rr.up
+                geom[0:2, col] = _rrect_origin(rr)
+                geom[2:4, col] = right
+                geom[4:6, col] = down
+                geom[6:10, col] = (rr.width, rr.height, rl.resized_width, 0.0)
+            geom[:, n:] = geom[:, n - 1 : n]
+            crops = extract_line_batch_rotated(
+                page, torch.from_numpy(geom).to(page.device), out_h=self._input_height, out_w=group_width
             )
-        geom[:, n:] = geom[:, n - 1 : n]
+        else:
+            geom = np.empty((6, n_pad), dtype=np.float32)
+            for col, rl in enumerate(batch):
+                geom[:, col] = (
+                    rl.rect.top, rl.rect.left, rl.rect.height, rl.rect.width, rl.resized_width, 0.0,
+                )
+            geom[:, n:] = geom[:, n - 1 : n]
 
-        v = MAX_CHAIN_V
-        chains = np.empty((n_pad, 2, v, 2), dtype=np.float32)
-        for col, rl in enumerate(batch):
-            half = len(rl.poly) // 2
-            chains[col, 0] = pad_chain(rl.poly[:half], v)
-            chains[col, 1] = pad_chain(rl.poly[half:][::-1], v)
-        chains[n:] = chains[n - 1 : n]
+            v = MAX_CHAIN_V
+            chains = np.empty((n_pad, 2, v, 2), dtype=np.float32)
+            for col, rl in enumerate(batch):
+                half = len(rl.poly) // 2
+                chains[col, 0] = pad_chain(rl.poly[:half], v)
+                chains[col, 1] = pad_chain(rl.poly[half:][::-1], v)
+            chains[n:] = chains[n - 1 : n]
 
-        crops = extract_line_batch_packed(
-            page,
-            torch.from_numpy(geom).to(page.device),
-            torch.from_numpy(chains).to(page.device),
-            out_h=self._input_height,
-            out_w=group_width,
-        )
+            crops = extract_line_batch_packed(
+                page,
+                torch.from_numpy(geom).to(page.device),
+                torch.from_numpy(chains).to(page.device),
+                out_h=self._input_height,
+                out_w=group_width,
+            )
         # bf16 crops: the recognizer computes in bf16.
         logprobs = self.run(crops.to(torch.bfloat16))  # [n_pad, T, C]
         return logprobs[:n]
+
+
+def _rrect_origin(rr: RotatedRect) -> np.ndarray:
+    """Page coordinates of a rotated rect's top-left corner (in its own
+    frame: against the text direction and up the glyphs)."""
+    return rr.center - rr.right_axis() * (rr.width / 2.0) + rr.up * (rr.height / 2.0)
+
+
+def _pick_direction_variants(results: list[_LineResult]) -> list[_LineResult]:
+    """Resolve vertical-text direction voting: of the two reading-direction
+    variants sharing a line index, keep the decode with the higher mean
+    per-frame confidence. A variant that decodes at least 2 characters beats
+    an (near-)empty one whatever the confidence: an unreadable direction
+    often collapses to confident all-blank frames."""
+    if all(r.line.variant < 0 for r in results):
+        return results
+    by_index: dict[int, list[_LineResult]] = {}
+    out: list[_LineResult] = []
+    for r in results:
+        if r.line.variant < 0:
+            out.append(r)
+        else:
+            by_index.setdefault(r.line.index, []).append(r)
+    for variants in by_index.values():
+        if len(variants) == 1:
+            out.append(variants[0])
+            continue
+        a, b = variants[:2]
+        if (len(a.steps) >= 2) != (len(b.steps) >= 2):
+            out.append(a if len(a.steps) >= 2 else b)
+        else:
+            out.append(a if a.conf >= b.conf else b)
+    return out
+
+
+def _text_line_from_rotated_result(result: _LineResult, alphabet: str) -> Optional[TextLine]:
+    """Deskew-mode counterpart of the char-rect back-mapping: decoded step
+    positions advance along the ROTATED rect's width axis, and each char's
+    rect is the axis-aligned bounding box of its slanted slice. Positions
+    follow the same downsample / x-scale / truncation law as the
+    axis-aligned path."""
+    rr = result.line.rrect
+    steps = result.steps
+    if not steps:
+        return None
+    x_scale = float(rr.width) / float(result.line.resized_width)
+    downsample = round(result.rec_input_len / result.ctc_input_len)
+    pos = np.array([s.pos for s in steps], dtype=np.float64) * downsample
+    labels = np.array([s.label for s in steps], dtype=np.int64)
+    end = np.concatenate([pos[1:], [float(result.line.resized_width)]])
+    start_lx = np.trunc(pos * x_scale)  # rect-local, along the width axis
+    end_lx = np.trunc(end * x_scale)
+    in_bounds = start_lx < rr.width
+    start_lx, end_lx = start_lx[in_bounds], np.minimum(end_lx[in_bounds], rr.width)
+    labels = labels[in_bounds]
+
+    right, down = rr.right_axis(), -rr.up
+    origin = _rrect_origin(rr)
+    # Corners of each char's slanted slice: origin + lx*right + ly*down for
+    # lx in {start, end}, ly in {0, h}.
+    lxs = np.stack([start_lx, end_lx], axis=1)  # (C, 2)
+    corners = (
+        origin[None, None, None, :]
+        + lxs[:, :, None, None] * right[None, None, None, :]
+        + np.array([0.0, rr.height])[None, None, :, None] * down[None, None, None, :]
+    )  # (C, 2, 2, 2) -> [char, lx, ly, xy]
+    xs = corners[..., 0].reshape(len(lxs), 4)
+    ys = corners[..., 1].reshape(len(lxs), 4)
+
+    chars = []
+    for i, label in enumerate(labels.tolist()):
+        label_idx = label - 1
+        ch = alphabet[label_idx] if 0 <= label_idx < len(alphabet) else "?"
+        rect = Rect.from_tlbr(ys[i].min(), xs[i].min(), ys[i].max(), xs[i].max())
+        chars.append(TextChar(char=ch, rect=rect))
+    return TextLine(chars) if chars else None
 
 
 def _text_lines_from_results(results: list[_LineResult], alphabet: str) -> list[Optional[TextLine]]:
@@ -433,6 +701,9 @@ def _text_lines_from_results(results: list[_LineResult], alphabet: str) -> list[
     (recognition.rs:241-311)."""
     out: list[Optional[TextLine]] = []
     for result in results:
+        if result.line.rrect is not None:
+            out.append(_text_line_from_rotated_result(result, alphabet))
+            continue
         steps = result.steps
         if not steps:
             out.append(None)
@@ -460,3 +731,57 @@ def _text_lines_from_results(results: list[_LineResult], alphabet: str) -> list[
             chars.append(TextChar(char=ch, rect=rect))
         out.append(TextLine(chars) if chars else None)
     return out
+
+
+def arbitrate_word_gaps(
+    line_rects: Sequence[RotatedRect], text_line: Optional[TextLine], *, span_margin: float = 0.5
+) -> Optional[TextLine]:
+    """Insert missing spaces at DETECTED word boundaries.
+
+    The detector is a second witness of word segmentation: when a line's
+    decode runs two words together at a tight gap, the detector has usually
+    still produced two word rects with a gap between them. For each adjacent pair of the line's word rects, if no decoded
+    space covers the gap and no decoded glyph SPANS the gap midpoint (a
+    spanning glyph means the recognizer merged ink across the boundary —
+    e.g. a wide char rect absorbing its neighbour — where inserting would
+    corrupt the word), insert a space TextChar at the gap.
+
+    No upstream counterpart: upstream relies on its recognizer alone for
+    spaces. Returns a new TextLine (or the input unchanged).
+    """
+    if text_line is None or len(line_rects) < 2:
+        return text_line
+    chars = list(text_line.chars())
+    if not chars:
+        return text_line
+    rects = sorted((r.bounding_rect() for r in line_rects), key=lambda b: b.left)
+    inserted = False
+    for a, b in zip(rects[:-1], rects[1:]):
+        if b.left <= a.left or b.right <= a.right:
+            continue  # nested/degenerate boxes, not a reading-order pair
+        mid = (a.right + b.left) / 2.0
+        blocked = False
+        covered = False
+        for c in chars:
+            cl, cr = c.rect.left, c.rect.right
+            if c.char == " ":
+                if cl <= mid <= cr or (a.right - 2.0 <= cl and cr <= b.left + 2.0):
+                    covered = True
+                    break
+            elif cl < mid - span_margin and cr > mid + span_margin:
+                blocked = True
+                break
+        if covered or blocked:
+            continue
+        pos = 0
+        while pos < len(chars) and (chars[pos].rect.left + chars[pos].rect.right) / 2.0 <= mid:
+            pos += 1
+        if pos == 0 or pos >= len(chars):
+            continue  # gap outside the decoded span: nothing to separate
+        top = min(a.top, b.top)
+        bottom = max(a.bottom, b.bottom)
+        left = min(a.right, mid - 0.5)
+        right = max(b.left, mid + 0.5)
+        chars.insert(pos, TextChar(" ", Rect.from_tlbr(top, left, bottom, right)))
+        inserted = True
+    return TextLine(chars) if inserted else text_line

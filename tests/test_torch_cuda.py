@@ -117,3 +117,135 @@ def test_bigru_layer_on_card_matches_cpu():
     got = layer.cuda()(x.cuda())
     assert gru.bigru_sequence.launches == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Plain tensor code of the default path: the card against the CPU.
+# ---------------------------------------------------------------------------
+
+
+def _seeded_mask(kind, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if kind == "noise":
+        return torch.from_numpy(rng.random((97, 131)) < 0.4)
+    m = np.zeros((304, 400), bool)
+    for _ in range(120 if kind == "words" else 900):
+        y, x = rng.integers(0, 296), rng.integers(0, 370)
+        m[y : y + rng.integers(2, 8), x : x + rng.integers(4, 30)] = True
+    return torch.from_numpy(m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["words", "crowded", "noise"])
+@pytest.mark.parametrize(
+    "fn,kwargs",
+    [
+        ("label_components_multigrid", {}),
+        ("label_components_multigrid", {"solidify": False}),
+        ("label_components_rungraph", {}),
+        ("label_components_rungraph", {"max_runs": 64, "max_edges": 48}),
+        ("label_components_device", {}),
+        ("label_components_device", {"solidify": True}),
+    ],
+    ids=lambda v: v if isinstance(v, str) else ",".join(f"{k}={x}" for k, x in v.items()) or "defaults",
+)
+def test_labelling_on_card_equals_cpu(fn, kwargs, kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ocrs_tpu_torch.ops import connected_components as cc
+
+    mask = _seeded_mask(kind)
+    want = getattr(cc, fn)(mask, **kwargs)
+    got = getattr(cc, fn)(mask.cuda(), **kwargs)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    # Integers: the scattered minima do not depend on the order of the atomics.
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["words", "crowded", "noise"])
+@pytest.mark.parametrize("pool,solidify,caps", [(2, True, {}), (1, False, {}), (2, True, {"max_runs": 100, "k_row": 3})])
+def test_runs_tables_on_card_equal_cpu(kind, pool, solidify, caps):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ocrs_tpu_torch.ops import rects
+
+    mask = _seeded_mask(kind, seed=1)
+    want = rects.runs_tables(mask, pool=pool, solidify=solidify, **caps)
+    got = rects.runs_tables(mask.cuda(), pool=pool, solidify=solidify, **caps)
+    assert got.dtype == torch.int16 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,caps", [("words", {}), ("crowded", {}), ("crowded", {"max_components": 16, "max_boundary": 1000})])
+def test_min_area_rects_on_card_match_cpu(kind, caps):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ocrs_tpu_torch.ops import connected_components as cc
+    from ocrs_tpu_torch.ops import rects
+
+    labels = cc.label_components_multigrid(_seeded_mask(kind, seed=2))
+    want = rects.min_area_rects_device(labels, **caps)
+    got = rects.min_area_rects_device(labels.cuda(), **caps)
+    for k in ("valid", "count", "dropped"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    valid = want["valid"]
+    # float32 cos/sin and argmin over near-equal areas: a component may pick
+    # the neighbouring angle step (0.9 degrees), which moves its extents by
+    # less than a pixel at these sizes.
+    for k in ("cx", "cy", "w", "h"):
+        torch.testing.assert_close(got[k].cpu()[valid], want[k][valid], rtol=0, atol=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["convctc", "crnn"])
+def test_recognizer_float32_on_card_matches_cpu(arch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+
+    from ocrs_tpu_torch.models.recognition_net import RecognitionModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = RecognitionModel.create(0, arch=arch)
+        x = torch.rand(3, 1, 64, 256, generator=torch.Generator().manual_seed(0)) - 0.5
+        want = model.run(x, dtype=torch.float32)
+        got = copy.deepcopy(model).cuda().run(x.cuda(), dtype=torch.float32)
+        assert tuple(got.shape) == (64, 3, 97)
+        # Same math in float32; sums in another order.
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.cuda
+def test_rotated_extraction_and_beam_reduction_on_card_match_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ocrs_tpu_torch.ops.ctc import beam_topk_packed, text_confidence
+    from ocrs_tpu_torch.ops.warp import extract_line_batch_rotated
+
+    g = torch.Generator().manual_seed(3)
+    page = torch.rand(200, 300, generator=g) - 0.5
+    theta = torch.tensor([0.0, 0.2, -0.4, 1.5708])
+    geom = torch.stack(
+        [
+            torch.tensor([10.0, 40.0, 60.0, 150.0]), torch.tensor([20.0, 30.0, 120.0, 10.0]),
+            torch.cos(theta), torch.sin(theta), -torch.sin(theta), torch.cos(theta),
+            torch.tensor([120.0, 90.0, 150.0, 100.0]), torch.tensor([20.0, 16.0, 30.0, 24.0]),
+            torch.tensor([200.0, 128.0, 256.0, 180.0]), torch.zeros(4),
+        ]
+    )
+    want = extract_line_batch_rotated(page, geom, out_h=64, out_w=256)
+    got = extract_line_batch_rotated(page.cuda(), geom.cuda(), out_h=64, out_w=256)
+    # The card contracts a*b+c into one rounding (FMA) where the CPU rounds
+    # twice, which moves a sample position by an ulp and its value by ~1e-5.
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+    lp = torch.log_softmax(4.0 * torch.randn(3, 50, 97, generator=g), dim=-1)
+    assert torch.equal(beam_topk_packed(lp.cuda(), k=8, gap=10.0).cpu(), beam_topk_packed(lp, k=8, gap=10.0))
+    torch.testing.assert_close(text_confidence(lp.cuda()).cpu(), text_confidence(lp), rtol=0, atol=1e-5)

@@ -1,12 +1,18 @@
 """The port's engine end to end against the JAX engine, at full width.
 
-Both engines use the shipped detector (weights/text-detection.npz) and the
-same CRNN recognizer at hidden 192: the JAX package's
-``RecognitionModel.create(0, arch="crnn")``, carried across with
-``params_from_jax``. Both post-process detections on the host. The CRNN
-weights are random, so the decoded text is nonsense, but it is
-deterministic, and the port must reproduce it exactly.
+Both engines use the shipped detector (weights/text-detection.npz). Two
+recognizers are driven:
+
+  * the shipped ConvCTC (weights/text-recognition.npz) with DEFAULT engine
+    parameters on both sides (multigrid post-processing on the device);
+  * the CRNN at hidden 192, the JAX package's
+    ``RecognitionModel.create(0, arch="crnn")`` carried across with
+    ``params_from_jax``, with ``detection_postprocess="host"`` stated on both
+    sides. Its weights are random, so the decoded text is nonsense, but it
+    is deterministic, and the port must reproduce it exactly.
 """
+
+import dataclasses
 
 from pathlib import Path
 
@@ -20,16 +26,17 @@ from ocrs_tpu.engine import OcrEngine as JaxEngine
 from ocrs_tpu.engine import OcrEngineParams as JaxParams
 from ocrs_tpu.models.recognition_net import RecognitionModel as JaxRecognitionModel
 from ocrs_tpu.models.weights import load_detection_model as jax_load_detection_model
+from ocrs_tpu.models.weights import load_recognition_model as jax_load_recognition_model
 from ocrs_tpu.preprocess import DimOrder as JaxDimOrder
 from ocrs_tpu.preprocess import ImageSource as JaxImageSource
 import ocrs_tpu_torch as ot
 from ocrs_tpu_torch.models.recognition_net import RecognitionModel
-from ocrs_tpu_torch.models.weights import load_detection_model
+from ocrs_tpu_torch.models.weights import load_detection_model, load_recognition_model
 from ocrs_tpu_torch.ops import gru
-from ocrs_tpu_torch.recognition import BeamSearch
 
 REPO = Path(__file__).resolve().parent.parent
 DET_WEIGHTS = REPO / "weights" / "text-detection.npz"
+REC_WEIGHTS = REPO / "weights" / "text-recognition.npz"
 EXPECTED_TEXT = {
     "two-lines.png": "@A]F\ng]F",
     "strip-line.png": "A]A]F]F\n]FAw]\n]F]F",
@@ -50,6 +57,7 @@ def engines():
         ot.OcrEngineParams(
             detection_model=load_detection_model(DET_WEIGHTS),
             recognition_model=RecognitionModel(jax.device_get(jax_rec.params), "crnn"),
+            detection_postprocess="host",
         ),
         device="cpu",
     )
@@ -62,6 +70,83 @@ def _image(name):
 
 def _corners(rect):
     return np.stack(rect.corners())
+
+
+def _corner_distance(a, b):
+    """Largest coordinate difference between two rects' corners, whichever
+    corner each starts from: a rect fitted to four points is the same rect
+    with its axes turned by 90 degrees and width and height swapped, and
+    which one the calipers return hangs on the last bit of a tie."""
+    ca, cb = _corners(a), _corners(b)
+    return min(float(np.abs(ca - np.roll(cb, k, axis=0)).max()) for k in range(4))
+
+
+@pytest.fixture(scope="module")
+def default_engines():
+    jax_engine = JaxEngine(
+        JaxParams(
+            detection_model=jax_load_detection_model(DET_WEIGHTS),
+            recognition_model=jax_load_recognition_model(REC_WEIGHTS),
+        )
+    )
+    port_engine = ot.OcrEngine(
+        ot.OcrEngineParams(
+            detection_model=load_detection_model(DET_WEIGHTS),
+            recognition_model=load_recognition_model(REC_WEIGHTS),
+        ),
+        device="cpu",
+    )
+    return jax_engine, port_engine
+
+
+def test_engine_params_defaults_equal_the_jax_engines():
+    def defaults(cls):
+        out = {}
+        for f in dataclasses.fields(cls):
+            if f.default is not dataclasses.MISSING:
+                out[f.name] = f.default
+            else:
+                out[f.name] = type(f.default_factory()).__name__
+        return out
+
+    assert defaults(ot.OcrEngineParams) == defaults(JaxParams)
+    assert ot.OcrEngineParams().detection_postprocess == "multigrid"
+    assert ot.OcrEngineParams().detection_tile_overlap == 64
+
+
+@pytest.mark.parametrize("name", sorted(EXPECTED_TEXT))
+def test_shipped_convctc_with_default_params_matches_jax_engine(default_engines, name):
+    jax_engine, port_engine = default_engines
+    img = _image(name)
+    jin = jax_engine.prepare_input(JaxImageSource.from_tensor(img, JaxDimOrder.HWC))
+    pin = port_engine.prepare_input(ot.ImageSource.from_tensor(img, ot.DimOrder.HWC))
+
+    jwords = jax_engine.detect_words(jin)
+    pwords = port_engine.detect_words(pin)
+    assert len(pwords) == len(jwords) > 0
+    for pw, jw in zip(pwords, jwords):
+        assert _corner_distance(pw, jw) <= 1.0
+
+    jlines = jax_engine.find_text_lines(jin, jwords)
+    plines = port_engine.find_text_lines(pin, pwords)
+    jpos = {id(w): i for i, w in enumerate(jwords)}
+    ppos = {id(w): i for i, w in enumerate(pwords)}
+    assert [[ppos[id(w)] for w in line] for line in plines] == [
+        [jpos[id(w)] for w in line] for line in jlines
+    ]
+
+    launches = gru.gru_sequence.launches + gru.bigru_sequence.launches
+    text = port_engine.get_text(pin)
+    assert gru.gru_sequence.launches + gru.bigru_sequence.launches == launches  # no recurrence here
+    assert text == jax_engine.get_text(jin) and text.strip()
+
+    as_chars = lambda tl: tl and [(c.char, c.rect.top, c.rect.left, c.rect.bottom, c.rect.right) for c in tl.chars()]
+    jrec = jax_engine.recognize_text(jin, jlines)
+    prec = port_engine.recognize_text(pin, plines)
+    assert len(prec) == len(jrec)
+    for p, j in zip(prec, jrec):
+        assert (p is None) == (j is None)
+        assert as_chars(p) == as_chars(j)  # characters and their rects, exactly
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED_TEXT))
@@ -123,6 +208,7 @@ def test_detect_text_pixels_and_page_resolution_path_match_jax():
     port_engine = ot.OcrEngine(
         ot.OcrEngineParams(
             detection_model=load_detection_model(DET_WEIGHTS),
+            detection_postprocess="host",
             detection_postprocess_resolution="page",
         ),
         device="cpu",
@@ -139,26 +225,6 @@ def test_detect_text_pixels_and_page_resolution_path_match_jax():
     for pw, jw in zip(pwords, jwords):
         np.testing.assert_allclose(_corners(pw), _corners(jw), atol=1.0, rtol=0)
     assert port_engine.detection_threshold() == jax_engine.detection_threshold() == 0.2
-
-
-@pytest.mark.parametrize(
-    "option",
-    [
-        {"decode_method": BeamSearch()},
-        {"deskew": True},
-        {"vertical_text": True},
-        {"rule_glyph": "["},
-        {"detection_word_spaces": True},
-        {"detection_tiled": True},
-        {"min_line_confidence": 0.5},
-        {"detection_postprocess": "multigrid"},
-    ],
-    ids=lambda o: next(iter(o)),
-)
-def test_unported_options_raise(option):
-    params = ot.OcrEngineParams(detection_model=load_detection_model(DET_WEIGHTS), **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ot.OcrEngine(params, device="cpu")
 
 
 def test_missing_models_raise():

@@ -124,11 +124,6 @@ def test_params_from_jax_layouts_and_round_trip(tmp_path):
     assert all(torch.equal(model.net.state_dict()[k], state[k]) for k in state)
 
 
-def test_shipped_convctc_recognizer_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="ConvCTC"):
-        load_recognition_model(REPO / "weights" / "text-recognition.npz")
-
-
 def test_detection_weight_file_loads_like_jax():
     tree, meta = load_params(DET_WEIGHTS)
     jtree, jmeta = jax_load_params(DET_WEIGHTS)
@@ -142,8 +137,8 @@ def test_recognition_model_create_is_seeded_and_convctc_is_refused():
     a, b = RecognitionModel.create(5, hidden=16), RecognitionModel.create(5, hidden=16)
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
     assert a.input_shape() == ["batch", 1, 64, "seq"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RecognitionModel.create(0, arch="convctc")
+    # ConvCTC is no longer refused: it builds, at its own width.
+    assert RecognitionModel.create(0, arch="convctc").arch == "convctc"
     with pytest.raises(ValueError):
         RecognitionModel.create(0, arch="lstm")
 
