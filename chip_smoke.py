@@ -42,13 +42,32 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
      their margins, and must be near-ties.
   6. options: every ``OcrEngineParams`` option once on the card, its text held
      against the CPU engine's.
-  7. times: CUDA-event medians of the kernel (one and both directions), its
-     plain version, its two timing-only variants (the step-latency floor), the
+  7. native: the host library (``native/ocrs_native.cpp``) is built with the
+     C++ compiler and each of its entry points that the pipeline calls is
+     held against the port's numpy or tensor route on seeded inputs.
+  8. pipeline: the throughput path. ``PagePipeline`` with the shipped
+     detector and ConvCTC and its defaults on a group of text pages: per page
+     the text ``OcrEngine.get_text`` reads on the card; the low-bandwidth
+     transport with and without 4-bit packing against the full-page one;
+     ``process_stream`` over three groups against three ``process`` calls;
+     every option once against the engine under the same option; the same
+     pipeline on the CPU.
+  9. pipeline_crnn: the CRNN at full width through ``PagePipeline.process``
+     on pages dense enough to fill a batch of 128 lines: GRU launches counted
+     (zeroed just before, read just after), log-probs against the run with
+     the plain GRU, float32 texts equal.
+  10. times: CUDA-event medians of the kernel (one and both directions) at
+     the engine's batch of 20 lines and the pipeline's of 128, its plain
+     version, its two timing-only variants (the step-latency floor), the
      bidirectional layer ``bigru_apply`` beside cuDNN's
      ``torch.nn.GRU(bidirectional=True)`` on the same weights (a yardstick
      only: the port never calls it), the kernel's bound, the ConvCTC and CRNN
      forward at the largest batch, ``get_text`` and its stages per page on
-     both paths, and ``detect_words`` under the three post-processing modes.
+     both paths, ``detect_words`` under the three post-processing modes, and
+     the pipeline at full size: groups of 16 pages of 3508 x 2480 ``uint8``
+     drawn by this script, pages per second of ``process_stream`` from host
+     pages and from pages on the card, under both transports and with both
+     recognizers, and the fenced stages of one ``process``.
 
 Then it prints the kernels line, the card's name and power limit, and, as
 the last line, ``{"ok": true, "device": {...}}``. A failed check exits with
@@ -63,6 +82,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -123,6 +143,18 @@ GLYPHS = {
     "t": [".#..", ".#..", "####", ".#..", ".#..", ".#..", "..##"],
 }
 
+# The pipeline's largest recognition batch: max_lines_per_batch = 128 lines.
+PIPE_N = 128
+# u8 crops and detector inputs made on the host against the tensor route:
+# u8 rounding of the same float sample, in grey levels.
+U8_ATOL = 0.75
+# Full-size pages for the pipeline's times: A4 at 300 dpi, lines of 5 to 9
+# words of the text page's vocabulary, four pixels to a grid cell.
+PAGE_HW = (3508, 2480)
+PAGE_LINES, PAGE_PITCH, PAGE_SCALE, PAGE_LEFT, PAGE_SPACE_COLS = 56, 60, 4, 200, 6
+GROUP_PAGES = 16
+BENCH_WORDS = ("Section", "12", "notes", "This", "line", "is", "longer")
+
 failures: list[str] = []
 
 
@@ -180,7 +212,7 @@ def gru_inputs(generator, device="cuda"):
     return xr, xz, xn, wh, bh
 
 
-def bigru_inputs(generator, device="cuda"):
+def bigru_inputs(generator, device="cuda", n=GRU_N):
     """Operands of bigru_sequence as the layer passes them: the transposed
     views of two [N, T, 3H] projections, then wh, bh of each direction."""
     import torch
@@ -188,7 +220,7 @@ def bigru_inputs(generator, device="cuda"):
     def randn(*shape):
         return torch.randn(*shape, device=device, generator=generator)
 
-    xps = [randn(GRU_N, GRU_T, 3 * GRU_H).transpose(0, 1) for _ in range(2)]
+    xps = [randn(n, GRU_T, 3 * GRU_H).transpose(0, 1) for _ in range(2)]
     rec = []
     for _ in range(2):
         rec += [randn(GRU_H, 3 * GRU_H) * (2.0 / GRU_H) ** 0.5, randn(3 * GRU_H) * 0.1]
@@ -203,29 +235,178 @@ def frame_flips(lp, lp_other):
     return int(flipped.sum()), (top2[..., 0] - top2[..., 1])[flipped].tolist()
 
 
+def render_line(text, scale, space_cols=3):
+    """One line of bold text as a bool ink mask, ten grid rows high. One grid
+    cell is `scale` pixels; letters are a column apart, words `space_cols`."""
+    import numpy as np
+
+    cols = []
+    for ch in text:
+        if ch == " ":
+            cols.append(np.zeros((10, space_cols), bool))
+            continue
+        rows = GLYPHS[ch]
+        glyph = np.zeros((10, max(len(r) for r in rows)), bool)
+        for i, r in enumerate(rows):
+            glyph[i, : len(r)] = [c == "#" for c in r]
+        glyph[:, 1:] |= glyph[:, :-1].copy()  # bold: every stroke a column wider
+        cols += [glyph, np.zeros((10, 1), bool)]
+    return np.concatenate(cols, axis=1).repeat(scale, axis=0).repeat(scale, axis=1)
+
+
 def text_page(lines=TEXT_LINES, hw=(160, 420), scale=3, left=30, top=24, gap=22):
-    """Dark bold text on a light page -> (H, W, 1) uint8. One grid cell is
-    `scale` pixels; letters are a column apart, words three."""
+    """Dark bold text on a light page -> (H, W, 1) uint8."""
     import numpy as np
 
     ink = np.zeros(hw, bool)
     y = top
     for text in lines:
-        cols = []
-        for ch in text:
-            if ch == " ":
-                cols.append(np.zeros((10, 3), bool))
-                continue
-            rows = GLYPHS[ch]
-            glyph = np.zeros((10, max(len(r) for r in rows)), bool)
-            for i, r in enumerate(rows):
-                glyph[i, : len(r)] = [c == "#" for c in r]
-            glyph[:, 1:] |= glyph[:, :-1].copy()  # bold: every stroke a column wider
-            cols += [glyph, np.zeros((10, 1), bool)]
-        line = np.concatenate(cols, axis=1).repeat(scale, axis=0).repeat(scale, axis=1)
+        line = render_line(text, scale)
         ink[y : y + line.shape[0], left : left + line.shape[1]] = line
         y += line.shape[0] + gap
     return np.where(ink, 0, 255).astype(np.uint8)[..., None]
+
+
+def full_page(seed, hw=PAGE_HW):
+    """A page of PAGE_LINES lines of 5 to 9 random words at a pitch of
+    PAGE_PITCH pixels -> ((H, W) uint8, the lines as drawn)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ink = np.zeros(hw, bool)
+    top = (hw[0] - PAGE_LINES * PAGE_PITCH) // 2
+    texts = []
+    for li in range(PAGE_LINES):
+        words = [BENCH_WORDS[i] for i in rng.integers(0, len(BENCH_WORDS), rng.integers(5, 10))]
+        text = " ".join(words)
+        line = render_line(text, PAGE_SCALE, PAGE_SPACE_COLS)
+        y = top + li * PAGE_PITCH
+        ink[y : y + line.shape[0], PAGE_LEFT : PAGE_LEFT + line.shape[1]] = line
+        texts.append(text)
+    return np.where(ink, 0, 255).astype(np.uint8), texts
+
+
+def native_checks(dev):
+    """Each entry point of the native library that the pipeline calls, against
+    the port's numpy or tensor route on seeded inputs. Returns the report."""
+    import numpy as np
+    import torch
+
+    from ocrs_tpu_torch import layout, native
+    from ocrs_tpu_torch.geometry import Rect, RotatedRect
+    from ocrs_tpu_torch.ops import ctc, rects, resize, warp
+    from ocrs_tpu_torch.preprocess import BLACK_VALUE
+
+    rng = np.random.default_rng(0)
+    report = {}
+
+    # find_text_lines: the whole layout in one call, from rect arrays.
+    words = []
+    for col_x in (20, 620):
+        for r in range(12):
+            x = col_x + int(rng.integers(0, 8))
+            for _ in range(int(rng.integers(2, 6))):
+                w = int(rng.integers(20, 90))
+                y = 40 * r + int(rng.integers(0, 4))
+                words.append(RotatedRect.from_rect(Rect.from_tlbr(y, x, y + 20, x + w)))
+                x += w + int(rng.integers(6, 24))
+    words = [words[i] for i in rng.permutation(len(words))]
+    cols = [np.array(c) for c in zip(*[(w.center[0], w.center[1], w.up[0], w.up[1], w.width, w.height) for w in words])]
+    got = layout.find_text_lines_idx_arrays(*cols)
+    with native.disabled():
+        want = layout.find_text_lines(words)
+    same = got is not None and [[tuple(words[i].center) for i in li] for li in got] == [[tuple(w.center) for w in l] for l in want]
+    check(same, "native find_text_lines equals the numpy layout")
+    report["find_text_lines"] = {"words": len(words), "lines": len(want), "equal": same}
+
+    # runs_to_rects on run tables the card made of seeded masks.
+    masks = np.zeros((2, 120, 160), bool)
+    for m in masks:
+        for _ in range(14):
+            y, x = rng.integers(0, 110), rng.integers(0, 130)
+            m[y : y + rng.integers(3, 8), x : x + rng.integers(6, 30)] = True
+    runs = rects.runs_tables(torch.from_numpy(masks).to(dev)).cpu().numpy()
+    got = native.runs_to_rects(np.ascontiguousarray(runs[:, :6]), 2, 64)
+    want = rects._runs_to_rects_numpy(runs[:, :6], 2, 64)
+    err = float(np.abs(got - want).max())
+    check(err <= 1e-9, f"native runs_to_rects equals the numpy route ({err})")
+    report["runs_to_rects"] = {"components": int((want[:, 0] > 0.5).sum()), "max_abs_err": err}
+
+    # ctc_collapse_batch and ctc_beam_topk.
+    labels = rng.integers(0, 4, (16, 200)).astype(np.uint8)
+    got = ctc.collapse_greedy_batch_arrays(labels)
+    logits = rng.standard_normal((4, 30, 12)) * 4.0
+    lp = (logits - np.log(np.exp(logits).sum(-1, keepdims=True))).astype(np.float32)
+    vals, idx = ctc.unpack_topk(ctc.beam_topk_packed(torch.from_numpy(lp).to(dev), k=8).cpu().numpy(), 8)
+    got_beam = ctc.beam_decode_topk(vals, idx, 10, 12)
+    with native.disabled():
+        want = ctc.collapse_greedy_batch_arrays(labels)
+        want_beam = ctc.beam_decode_topk(vals, idx, 10, 12)
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(got, want))
+    check(same, "native ctc_collapse_batch equals the numpy collapse")
+    check(got_beam == want_beam, "native ctc_beam_topk equals the Python beam")
+    report["ctc_collapse_batch"] = {"steps": int(sum(len(p) for p, _ in want)), "equal": same}
+    report["ctc_beam_topk"] = {"steps": sum(len(x) for x in want_beam), "equal": got_beam == want_beam}
+
+    # resize_pages against the float32 resize on the card.
+    pages = rng.integers(0, 256, (2, 351, 248), np.uint8)
+    got = native.resize_pages(pages, (80, 61)).astype(np.float32)
+    want = resize.resize_bilinear(torch.from_numpy(pages).to(dev).to(torch.float32), (80, 61)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    check(err <= U8_ATOL, f"native resize_pages against resize_bilinear: {err} <= {U8_ATOL} grey levels")
+    report["resize_pages"] = {"max_abs_err_grey_levels": err}
+
+    # extract_lines_strip against the page-stack extraction on the card (the
+    # chains mask nothing: a band far above and below every line).
+    n = 6
+    geom = np.zeros((6, n), np.float32)
+    geom[0], geom[1] = rng.integers(0, 300, n), rng.integers(0, 60, n)
+    geom[2], geom[3] = rng.integers(12, 30, n), rng.integers(80, 180, n)
+    geom[4], geom[5] = rng.integers(60, 129, n), rng.integers(0, 2, n)
+    chains = np.zeros((n, 2, 4, 2), np.float32)
+    chains[:, :, :, 0] = np.linspace(-10, 400, 4)
+    chains[:, 0, :, 1], chains[:, 1, :, 1] = -100.0, 900.0
+    segs = ((geom[4].astype(np.int64) + 1) // 2) * 2
+    offs = np.concatenate([[0], np.cumsum(segs[:-1])]).astype(np.int32)
+    strip = native.extract_lines_strip(pages, geom, offs, out_h=64, total_w=1024)
+    norm = torch.from_numpy(pages).to(dev).to(torch.float32) / 255.0 + BLACK_VALUE
+    want = warp.extract_line_batch_packed(
+        norm, torch.from_numpy(geom).to(dev), torch.from_numpy(chains).to(dev), out_h=64, out_w=128
+    )
+    want = ((want[:, 0] - BLACK_VALUE) * 255.0).cpu().numpy()
+    err = max(
+        float(np.abs(strip[:, o : o + int(w)].astype(np.float32) - want[i, :, : int(w)]).max())
+        for i, (o, w) in enumerate(zip(offs, geom[4]))
+    )
+    check(err <= U8_ATOL, f"native extract_lines_strip against extract_line_batch_packed: {err} <= {U8_ATOL}")
+    report["extract_lines_strip"] = {"lines": n, "max_abs_err_grey_levels": err}
+
+    # extract_lines_rotated against the rotated extraction on the card.
+    rgeom = np.zeros((10, 2), np.float32)
+    for col, (deg, origin, page) in enumerate(((12.0, (18.0, 40.0), 1.0), (-20.0, (15.0, 240.0), 0.0))):
+        theta = np.radians(deg)
+        rgeom[0:2, col] = origin
+        rgeom[2:4, col] = (np.cos(theta), np.sin(theta))
+        rgeom[4:6, col] = (-np.sin(theta), np.cos(theta))
+        rgeom[6:10, col] = (160.0, 30.0, 100.0, page)
+    got = native.extract_lines_rotated(pages, rgeom, out_h=64, out_w=128).astype(np.float32)
+    want = warp.extract_line_batch_rotated(norm, torch.from_numpy(rgeom).to(dev), out_h=64, out_w=128)
+    want = ((want[:, 0] - BLACK_VALUE) * 255.0).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    check(err <= U8_ATOL, f"native extract_lines_rotated against extract_line_batch_rotated: {err} <= {U8_ATOL}")
+    report["extract_lines_rotated"] = {"lines": 2, "max_abs_err_grey_levels": err}
+    return report
+
+
+def close_texts(got, want, ratio=0.9):
+    """Page by page the same number of lines, and texts that differ in at
+    most a tenth of their characters."""
+    import difflib
+
+    return len(got) == len(want) and all(
+        len(a.splitlines()) == len(b.splitlines()) and difflib.SequenceMatcher(None, a, b).ratio() >= ratio
+        for a, b in zip(got, want)
+    )
 
 
 def option_pages(text, wide):
@@ -253,8 +434,8 @@ def main() -> int:
     try:
         import numpy as np
 
-        from ocrs_tpu_torch import cuda_build
-        from ocrs_tpu_torch.engine import OcrEngine, OcrEngineParams
+        from ocrs_tpu_torch import PagePipeline, cuda_build, native
+        from ocrs_tpu_torch.engine import DEFAULT_ALPHABET, OcrEngine, OcrEngineParams
         from ocrs_tpu_torch import detection
         from ocrs_tpu_torch.models.recognition_net import RecognitionModel
         from ocrs_tpu_torch.models.weights import load_detection_model, load_recognition_model
@@ -262,7 +443,9 @@ def main() -> int:
         from ocrs_tpu_torch.ops import gru, rects
         from ocrs_tpu_torch.recognition import BeamSearch
         from ocrs_tpu_torch.png import read_png
+        from ocrs_tpu_torch.parallel.pipeline import probe_h2d_mbps
         from ocrs_tpu_torch.preprocess import DimOrder, ImageSource
+        from ocrs_tpu_torch.utils.tracing import StageTimer
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 2
@@ -270,12 +453,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products stay float32
 
     # 1. Build -----------------------------------------------------------------
+    # The C++ compiler builds the host library while nvcc builds the kernels.
     t0 = time.perf_counter()
+    native_build = threading.Thread(target=native.available)
+    native_build.start()
     built = cuda_build.build()
+    native_build.join()
+    native.require()
     emit(
         {
             "phase": "build",
             "seconds": time.perf_counter() - t0,
+            "native_library": sorted(p.name for p in (REPO / "build" / "native").glob("*.so")),
             "libraries": {name: round(info["seconds"], 3) for name, info in built.items()},
             "ptxas": [
                 line.strip()
@@ -305,14 +494,26 @@ def main() -> int:
     check(bool(torch.isfinite(bi_out).all()), "bigru_sequence output is finite")
     for name, half in (("bigru_forward_half", slice(0, GRU_H)), ("bigru_reverse_half", slice(GRU_H, None))):
         errs[name] = float((bi_out.transpose(0, 1)[..., half] - bi_want[..., half]).abs().max())
+    # The pipeline's batch: 128 lines, 8 row tiles of 16 side by side.
+    big_args = bigru_inputs(g, n=PIPE_N)
+    big_out = torch.full((PIPE_N, GRU_T, 2 * GRU_H), float("nan"), device=dev)
+    gru.bigru_sequence(*big_args, out=big_out.transpose(0, 1))
+    big_want = gru.bigru_sequence_reference(*big_args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(big_out).all()), f"bigru_sequence output at N={PIPE_N} is finite")
+    errs[f"bigru_n{PIPE_N}"] = float((big_out.transpose(0, 1) - big_want).abs().max())
+    del big_want
     max_err = max(errs.values())
     check(max_err <= GRU_ATOL, f"GRU kernel vs plain: max |err| {max_err} <= {GRU_ATOL} ({errs})")
+    plan_big = gru.launch_plan(PIPE_N, GRU_H)
     emit(
         {
             "phase": "kernel_vs_plain",
             "kernel": "gru_sequence, bigru_sequence",
             "launch_plan": gru.launch_plan(GRU_N, GRU_H),
+            f"launch_plan_n{PIPE_N}": {**plan_big, "blocks": 2 * plan_big["tiles"] * plan_big["cluster"]},
             "shape": {"T": GRU_T, "N": GRU_N, "H": GRU_H, "dtype": "float32"},
+            "pipeline_shape": {"T": GRU_T, "N": PIPE_N, "H": GRU_H, "dtype": "float32"},
             "max_abs_err": errs,
             "atol": GRU_ATOL,
         }
@@ -605,7 +806,157 @@ def main() -> int:
     emit({"phase": "options", "options": options_report})
     conv_hook.remove()
 
-    # 7. Times ------------------------------------------------------------------
+    # 7. The native host library against the port's other routes -------------------
+    emit({"phase": "native", "u8_atol_grey_levels": U8_ATOL, "entry_points": native_checks(dev)})
+
+    # 8. The page pipeline: shipped detector and ConvCTC, defaults -------------------
+    def texts_of(results):
+        return [r.text for r in results]
+
+    def engine_texts(eng, group):
+        return [eng.get_text(eng.prepare_input(ImageSource.from_tensor(p[..., None], DimOrder.HWC))) for p in group]
+
+    def make_pipe(device="cuda", models=None, **kwargs):
+        d, r = models or ((det, conv) if device == "cuda" else (det_cpu, conv_cpu))
+        return PagePipeline(d, r, DEFAULT_ALPHABET, device=device, **kwargs)
+
+    text = pages["text"][..., 0]
+    text_group = np.stack(
+        [text, text_page(TEXT_LINES[::-1])[..., 0], text_page(left=44, top=30)[..., 0], text_page(TEXT_LINES[:1])[..., 0]]
+    )
+    pipe = make_pipe()
+    hbm = pipe.process(text_group)
+    pipe_report = {"transport_auto": pipe._transport, "h2d_mbps": probe_h2d_mbps(dev)}
+    want = engine_texts(default_engine, text_group)
+    check(texts_of(hbm) == want, f"pipeline: process reads what the engine reads ({texts_of(hbm)} / {want})")
+    check(hbm[0].text.splitlines() == list(TEXT_LINES), f"pipeline: the text page is read as written ({hbm[0].text!r})")
+    pipe_report["text_group"] = {
+        "texts": texts_of(hbm),
+        "words": [len(r.words) for r in hbm],
+        "lines": [len(r.lines) for r in hbm],
+        "equals_engine": texts_of(hbm) == want,
+    }
+    # (b) The low-bandwidth transport: the same words, lines and text as the
+    # full-page one. With 4-bit packing the pixels are quantized to 16 grey
+    # levels, which may turn a weak letter: the words, the lines and the text
+    # page must hold, the other pages' text is compared loosely and reported.
+    for pack4 in (False, True):
+        low = make_pipe(transport="lowbw", transport_pack4=pack4).process(text_group)
+        same_counts = [len(r.words) for r in low] == [len(r.words) for r in hbm] and [len(r.lines) for r in low] == [
+            len(r.lines) for r in hbm
+        ]
+        same_text = texts_of(low) == texts_of(hbm)
+        ok = same_counts and (close_texts(texts_of(low), texts_of(hbm)) and low[0].text == hbm[0].text if pack4 else same_text)
+        check(ok, f"pipeline: lowbw (pack4={pack4}) reads the words, lines and text of hbm ({texts_of(low)})")
+        pipe_report[f"lowbw_pack4_{pack4}"] = {"texts": texts_of(low), "same_counts": same_counts, "equals_hbm": same_text}
+    # (c) process_stream over three groups against three process calls.
+    groups = [text_group, text_group[::-1].copy(), text_group[[2, 0, 3, 1]]]
+    serial = [texts_of(pipe.process(grp)) for grp in groups]
+    streamed = [texts_of(res) for res in pipe.process_stream(groups)]
+    check(streamed == serial, f"pipeline: process_stream equals process, group by group ({streamed} / {serial})")
+    pipe_report["process_stream_equals_process"] = streamed == serial
+    # (d) Every option once, against the engine under the same option. The
+    # engine fits word rects by an angle scan on the card, the pipeline by
+    # exact calipers on the host: a rect that differs by a fraction of a pixel
+    # moves a crop, and where an option makes the reading hang on weak letters
+    # (slanted or turned crops, letters masked out of the alphabet) one of them
+    # may turn. There the lines must be the same and the texts close, and
+    # equality is reported; the other options must read the engine's text.
+    loose = ("deskew", "vertical_text", "allowed_chars")
+    big = np.full((700, 1000), 255, np.uint8)
+    big[40:200, 60:480] = text
+    big[400:560, 520:940] = text
+    pipe_options = {
+        "deskew": (opt_pages["rotated"][None, ..., 0], {"deskew": True}, {"deskew": True}),
+        "vertical_text": (opt_pages["vertical"][None, ..., 0], {"vertical_text": True}, {"vertical_text": True}),
+        "min_line_confidence": (text_group, {"min_line_confidence": 0.5}, {"min_line_confidence": 0.5}),
+        "beam_search": (text_group, {"decode_method": BeamSearch(100)}, {"decode_method": BeamSearch(100)}),
+        "allowed_chars": (
+            text_group,
+            {"allowed_chars": "abcdefghijklmnopqrstuvwxyz "},
+            {"allowed_chars": "abcdefghijklmnopqrstuvwxyz "},
+        ),
+        "tiled_detection": (big[None], {"tiled_detection": True}, {"detection_tiled": True}),
+        "run_table_geometry_false": (text_group, {"run_table_geometry": False}, {}),
+    }
+    pipe_report["options"] = {}
+    for opt_name, (group, pipe_kwargs, engine_kwargs) in pipe_options.items():
+        got = texts_of(make_pipe(**pipe_kwargs).process(group))
+        eng = OcrEngine(OcrEngineParams(detection_model=det, recognition_model=conv, **engine_kwargs), device="cuda")
+        want = engine_texts(eng, group)
+        same = close_texts(got, want) if opt_name in loose else got == want
+        check(same, f"pipeline option {opt_name}: reads what the engine reads under it ({got} / {want})")
+        check(any(t.strip() for t in got), f"pipeline option {opt_name}: text found")
+        if opt_name == "allowed_chars":
+            allowed = set(pipe_kwargs["allowed_chars"] + "\n")
+            check(all(set(t) <= allowed for t in got), f"pipeline option allowed_chars: only allowed characters are read ({got})")
+        pipe_report["options"][opt_name] = {"hw": list(group.shape[1:]), "texts": got, "equals_engine": got == want}
+    # (e) The same pipeline on the CPU, asked for explicitly.
+    on_cpu = texts_of(make_pipe(device="cpu").process(text_group))
+    check(on_cpu == texts_of(hbm), f"pipeline: device='cpu' reads the text pages as the card does ({on_cpu})")
+    pipe_report["cpu_equals_card"] = on_cpu == texts_of(hbm)
+    emit({"phase": "pipeline", **pipe_report})
+
+    # 9. The CRNN through the pipeline: batches of 128 lines -------------------------
+    bench_pages, bench_texts = zip(*(full_page(seed) for seed in range(GROUP_PAGES)))
+    bench_group = np.stack(bench_pages)
+    dense = bench_group[:3]  # 168 lines: a batch of 128 and one of 40
+    crnn_pipe = make_pipe(models=(det, rec))
+    hook = rec.net.register_forward_hook(lambda m, inp, out: captured.append((inp[0].shape, out.detach())))
+
+    def crnn_run(group):
+        captured.clear()
+        res = crnn_pipe.process(group)
+        torch.cuda.synchronize()
+        return texts_of(res), [len(r.lines) for r in res], list(captured)
+
+    gru.gru_sequence.launches = gru.bigru_sequence.launches = 0
+    crnn_texts, crnn_lines, crnn_batches = crnn_run(dense)
+    pipe_launches = gru_launches()
+    check(pipe_launches > 0, "the pipeline launched the GRU kernel")
+    check(
+        pipe_launches == 2 * len(crnn_batches),
+        f"2 GRU launches per recognition batch of the pipeline ({pipe_launches} for {len(crnn_batches)})",
+    )
+    check(any(shape[0] == PIPE_N for shape, _ in crnn_batches), f"a batch of {PIPE_N} lines was run ({[tuple(sh) for sh, _ in crnn_batches]})")
+    rec.net.plain_gru = True
+    _, _, plain_batches = crnn_run(dense)
+    crnn_lp_diff, crnn_flips = 0.0, 0
+    for (shape, lp), (_, lp_plain) in zip(crnn_batches, plain_batches):
+        check(tuple(lp.shape) == (shape[3] // 4, shape[0], 97) and bool(torch.isfinite(lp).all()), "pipeline_crnn: finite log-probs of the expected shape")
+        crnn_lp_diff = max(crnn_lp_diff, float((lp - lp_plain).abs().max()))
+        crnn_flips += frame_flips(lp, lp_plain)[0]
+    check(crnn_lp_diff <= ENGINE_LOGPROB_ATOL, f"pipeline_crnn: log-probs kernel vs plain GRU {crnn_lp_diff} <= {ENGINE_LOGPROB_ATOL}")
+    # In float32, kernel and plain GRU: equal text on the text pages; on the
+    # dense pages, ~60,000 frames of a recognizer with random weights, a frame
+    # within 1e-4 of a tie may flip, so equality there is reported.
+    rec.dtype = torch.float32
+    f32_plain_small, _, _ = crnn_run(text_group)
+    f32_plain_dense, _, _ = crnn_run(dense)
+    rec.net.plain_gru = False
+    f32_small, _, _ = crnn_run(text_group)
+    f32_dense, _, _ = crnn_run(dense)
+    rec.dtype = torch.bfloat16
+    check(f32_small == f32_plain_small, f"pipeline_crnn: float32 kernel and plain GRU decode the same text ({f32_small} / {f32_plain_small})")
+    hook.remove()
+    emit(
+        {
+            "phase": "pipeline_crnn",
+            "pages": len(dense),
+            "lines": crnn_lines,
+            "batches": [{"N": sh[0], "w_eff": sh[3], "T": sh[3] // 4} for sh, _ in crnn_batches],
+            "gru_launches": pipe_launches,
+            "max_abs_logprob_diff_kernel_vs_plain": crnn_lp_diff,
+            "logprob_atol": ENGINE_LOGPROB_ATOL,
+            "bf16_flipped_frames": crnn_flips,
+            "f32_text_equal_kernel_vs_plain_text_pages": f32_small == f32_plain_small,
+            "f32_lines_equal_kernel_vs_plain_dense_pages": sum(
+                a == b for ta, tb in zip(f32_dense, f32_plain_dense) for a, b in zip(ta.splitlines(), tb.splitlines())
+            ),
+        }
+    )
+
+    # 10. Times -----------------------------------------------------------------
     one_dir_ms = cuda_ms(lambda: gru.gru_sequence(*args), reps=20)
     kernel_ms = cuda_ms(lambda: gru.bigru_sequence(*bi_args, out=bi_out.transpose(0, 1)), reps=20)
     # The dependent chain without arithmetic: the same launch without the
@@ -614,12 +965,21 @@ def main() -> int:
     no_product_ms = cuda_ms(lambda: gru.bigru_sequence(*bi_args, timing_mode=1), reps=20)
     sync_floor_ms = cuda_ms(lambda: gru.bigru_sequence(*bi_args, timing_mode=2), reps=20)
     plain_ms = cuda_ms(lambda: gru.bigru_sequence_reference(*bi_args), reps=10)
-    # Both directions: f32 operations of the recurrent products; each input
-    # read once and the output written once.
-    flops = 2 * 2.0 * GRU_N * GRU_H * 3 * GRU_H * GRU_T
-    nbytes = 2 * 4.0 * (4 * GRU_T * GRU_N * GRU_H + 3 * GRU_H * GRU_H + 3 * GRU_H)
-    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
+
+    def gru_bound(n):
+        """Both directions: f32 operations of the recurrent products; each
+        input read once and the output written once."""
+        flops = 2 * 2.0 * n * GRU_H * 3 * GRU_H * GRU_T
+        nbytes = 2 * 4.0 * (4 * GRU_T * n * GRU_H + 3 * GRU_H * GRU_H + 3 * GRU_H)
+        by_ops, by_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        return flops, nbytes, max(by_ops, by_bytes) * 1e3, "operations" if by_ops >= by_bytes else "bytes"
+
+    flops, nbytes, bound_ms, bound_by = gru_bound(GRU_N)
+    # The same at the pipeline's batch of 128 lines.
+    big_ms = cuda_ms(lambda: gru.bigru_sequence(*big_args, out=big_out.transpose(0, 1)), reps=20)
+    big_sync_floor_ms = cuda_ms(lambda: gru.bigru_sequence(*big_args, timing_mode=2), reps=20)
+    big_plain_ms = cuda_ms(lambda: gru.bigru_sequence_reference(*big_args), reps=3, warmup=1)
+    big_flops, big_nbytes, big_bound_ms, big_bound_by = gru_bound(PIPE_N)
 
     # Yardstick, like for like: cuDNN's bidirectional GRU on the same weights,
     # input projection included, beside the port's bigru_apply (two
@@ -639,6 +999,9 @@ def main() -> int:
         apply_ms = cuda_ms(lambda: layer(x), reps=20)
         apply_bf16_ms = cuda_ms(lambda: layer(x.to(torch.bfloat16)), reps=20)
         library_diff = float((cudnn_gru(x)[0] - layer(x)).abs().max())
+        x_big = torch.randn(PIPE_N, GRU_T, GRU_H, device=dev, generator=g)
+        big_library_ms = cuda_ms(lambda: cudnn_gru(x_big), reps=20)
+        big_apply_ms = cuda_ms(lambda: layer(x_big), reps=20)
     torch.backends.cudnn.allow_tf32 = True
     check(library_diff <= 1e-3, f"bigru_apply vs torch.nn.GRU(bidirectional=True) {library_diff} <= 1e-3")
 
@@ -693,6 +1056,90 @@ def main() -> int:
         crops = torch.rand(20, 1, 64, 2432, device=dev, generator=g).to(torch.bfloat16) - 0.5
         convctc_forward_ms = cuda_ms(lambda: conv.run(crops), reps=10)
         crnn_forward_ms = cuda_ms(lambda: rec.run(crops), reps=10)
+        del crops
+
+    # The pipeline at full size: groups of 16 pages of 3508 x 2480 uint8, each
+    # group the same pages in another order (arrays of their own).
+    host_groups = [np.roll(bench_group, k, axis=0) for k in range(8)]
+    drawn = sum(len(t) for t in bench_texts)
+
+    def stream_rate(p, groups, warm=2):
+        """Pages per second of process_stream over groups[warm:], after a
+        stream over the first `warm` groups; and the timed stream's results."""
+        p.process_stream(groups[:warm])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = p.process_stream(groups[warm:])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return sum(len(r) for r in res) / seconds, res
+
+    def fenced_stages(p, group, reps=3):
+        """Median ms of staging and of each stage of one process call, each
+        ending with a synchronization of the card."""
+        runs = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            staged = p._stage_pages(group)
+            torch.cuda.synchronize()
+            timer = StageTimer(fence_device=dev)
+            timer.timings["stage_pages"] = time.perf_counter() - t0
+            p.process_normalized(staged, timer=timer)
+            runs.append(timer.timings)
+        return {k: statistics.median(r[k] for r in runs[1:]) * 1e3 for k in runs[0]}
+
+    def read_as_drawn(results, shift):
+        """Lines of a group's pages that read exactly as they were drawn."""
+        return sum(
+            line in bench_texts[(i - shift) % GROUP_PAGES]
+            for i, r in enumerate(results)
+            for line in r.text.splitlines()
+        )
+
+    pipe_times = {
+        "group": {"pages": GROUP_PAGES, "hw": list(PAGE_HW), "dtype": "uint8", "lines_drawn": drawn},
+        "timed_groups": len(host_groups) - 2,
+        "warmup_groups": 2,
+        "h2d_mbps": probe_h2d_mbps(dev),
+    }
+    auto_pipe = make_pipe()
+    first = auto_pipe.process(bench_group)
+    pipe_times["transport_auto"] = auto_pipe._transport
+    pipe_times["words_per_group"] = sum(len(r.words) for r in first)
+    pipe_times["lines_per_group"] = sum(len(r.lines) for r in first)
+    pipe_times["lines_read_as_drawn"] = read_as_drawn(first, 0)
+    check(
+        0.95 * drawn <= pipe_times["lines_per_group"] <= 1.05 * drawn,
+        f"times: the pipeline finds the lines drawn on the full-size pages ({pipe_times['lines_per_group']} of {drawn})",
+    )
+    check(pipe_times["lines_read_as_drawn"] >= 0.2 * drawn, f"times: lines read as drawn ({pipe_times['lines_read_as_drawn']} of {drawn})")
+    on_card = auto_pipe._stage_pages(bench_group)
+    for label, p, groups in (
+        ("hbm_from_host", make_pipe(transport="hbm"), host_groups),
+        ("hbm_from_card", make_pipe(transport="hbm"), [on_card] * len(host_groups)),
+        ("lowbw_from_host", make_pipe(transport="lowbw"), host_groups),
+    ):
+        rate, res = stream_rate(p, groups)
+        pipe_times[label] = {
+            "pages_per_s": rate,
+            "lines_read_as_drawn_first_timed_group": read_as_drawn(res[0], 2 if groups is host_groups else 0),
+            "stages_ms": fenced_stages(p, bench_group),
+        }
+        check(all(len(r) == GROUP_PAGES for r in res), f"times: {label} returns every page of every group")
+    # Does the stream (the last one, low-bandwidth) return what process
+    # returns on the same group?
+    pipe_times["stream_equals_process_full_size"] = texts_of(res[0]) == texts_of(
+        make_pipe(transport="lowbw").process(host_groups[2])
+    )
+    del on_card
+    gru.gru_sequence.launches = gru.bigru_sequence.launches = 0
+    rate, res = stream_rate(crnn_pipe, host_groups)
+    pipe_times["crnn_hbm_from_host"] = {
+        "pages_per_s": rate,
+        "gru_launches_per_group": gru_launches() / len(host_groups),
+        "stages_ms": fenced_stages(crnn_pipe, bench_group),
+    }
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -723,6 +1170,16 @@ def main() -> int:
             "default_path_ms": default_ms,
             "detect_words_ms": detect_ms,
             "get_text_ms": page_ms,
+            "pipeline_gru_shape": {"T": GRU_T, "N": PIPE_N, "H": GRU_H},
+            f"bigru_sequence_n{PIPE_N}_ms": big_ms,
+            f"bigru_sequence_reference_n{PIPE_N}_ms": big_plain_ms,
+            f"sync_floor_n{PIPE_N}_ms": big_sync_floor_ms,
+            f"bigru_apply_n{PIPE_N}_ms": big_apply_ms,
+            f"cudnn_bigru_n{PIPE_N}_ms": big_library_ms,
+            f"bound_n{PIPE_N}_ms": big_bound_ms,
+            f"bound_n{PIPE_N}_flops": big_flops,
+            f"bound_n{PIPE_N}_bytes": big_nbytes,
+            "pipeline": pipe_times,
         }
     )
 
@@ -737,8 +1194,10 @@ def main() -> int:
                     "route": "cuda",
                     "source": "ocrs_tpu_torch/csrc/gru_seq.cu",
                     "replaces": "ocrs_tpu/ops/gru_pallas.py:41",
-                    "launches": launches,
+                    "launches": launches + pipe_launches,
+                    "launches_by_path": {"engine": launches, "pipeline_crnn": pipe_launches},
                     "max_abs_err": max_err,
+                    "shape": {"T": GRU_T, "N": GRU_N, "H": GRU_H},
                     "ms": kernel_ms,
                     "plain_ms": plain_ms,
                     "bound_ms": bound_ms,
@@ -749,6 +1208,19 @@ def main() -> int:
                     "layer_ms": apply_ms,
                     "one_direction_ms": one_dir_ms,
                     "sync_floor_ms": sync_floor_ms,
+                    # The same keys at the pipeline's batch of 128 lines.
+                    "pipeline_shape": {
+                        "shape": {"T": GRU_T, "N": PIPE_N, "H": GRU_H},
+                        "launches": pipe_launches,
+                        "max_abs_err": errs[f"bigru_n{PIPE_N}"],
+                        "ms": big_ms,
+                        "plain_ms": big_plain_ms,
+                        "bound_ms": big_bound_ms,
+                        "bound_by": big_bound_by,
+                        "library_ms": big_library_ms,
+                        "layer_ms": big_apply_ms,
+                        "sync_floor_ms": big_sync_floor_ms,
+                    },
                 }
             ]
         }

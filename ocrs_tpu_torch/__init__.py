@@ -3,7 +3,8 @@
 A second package beside the JAX one, with the same module names. Plain tensor
 code is PyTorch; each kernel that ``ocrs_tpu`` wrote in Pallas for the TPU is
 a hand-written CUDA kernel under ``csrc/``, built with ``nvcc`` at first use.
-The engine runs on CUDA unless the caller passes ``device="cpu"``, where
+The engine (one image at a time) and the page pipeline (groups of pages, the
+throughput path) run on CUDA unless the caller passes ``device="cpu"``, where
 every kernel's plain PyTorch version runs instead.
 
 Public API mirrors the upstream engine surface (ocrs/src/lib.rs:130-301).
@@ -18,6 +19,7 @@ from .errors import (
     WrongOutputError,
 )
 from .geometry import Line, Rect, RotatedRect, min_area_rect
+from .parallel.pipeline import PagePipeline, PageResult
 from .preprocess import BLACK_VALUE, DimOrder, ImageSource, prepare_image
 
 __version__ = "0.1.0"
@@ -35,6 +37,8 @@ __all__ = [
     "OcrEngineParams",
     "OcrError",
     "OcrInput",
+    "PagePipeline",
+    "PageResult",
     "Rect",
     "RotatedRect",
     "WrongOutputError",

@@ -284,6 +284,17 @@ class RotatedRect:
 
     # -- constructors -------------------------------------------------------
     @staticmethod
+    def _raw(cx: float, cy: float, ux: float, uy: float, w: float, h: float) -> "RotatedRect":
+        """Trusted fast constructor: (ux, uy) must already be unit. For batch
+        paths that build thousands of rects from validated arrays."""
+        r = RotatedRect.__new__(RotatedRect)
+        r.center = np.array((cx, cy))
+        r.up = np.array((ux, uy))
+        r.width = w
+        r.height = h
+        return r
+
+    @staticmethod
     def from_rect(rect: Rect) -> "RotatedRect":
         c = rect.center()
         return RotatedRect(c, point(0.0, -1.0), rect.width, rect.height)

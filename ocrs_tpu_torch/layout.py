@@ -1,19 +1,21 @@
 """Layout analysis: group word rects into lines in reading order.
 
-The numpy path of ``ocrs_tpu.layout`` (host code; the input is a few hundred
-word rects at most). The JAX package takes a native C++ fast path when
-``native/ocrs_native.cpp`` is built; the port keeps only the numpy twin of
-it, which has identical semantics (upstream layout_analysis.rs):
+Port of ``ocrs_tpu.layout`` (host code; the input is a few hundred word rects
+at most). Each hot function has two routes with identical semantics
+(upstream layout_analysis.rs): the C++ one of :mod:`ocrs_tpu_torch.native`
+when that library is available, and the numpy one otherwise:
 
-  * :func:`_group_into_lines_idx` -- greedy left-to-right chaining with
+  * :func:`group_into_lines` -- greedy left-to-right chaining with
     vertical overlap >= 5 px, horizontal overlap <= 5 px and
     separator-crossing checks (layout_analysis.rs:19-71).
-  * :func:`_max_empty_rects_tlbr` -- Breuel-2002 branch-and-bound over
+  * :func:`max_empty_rects` -- Breuel-2002 branch-and-bound over
     maximal whitespace rectangles (empty_rects.rs:86-166).
   * :func:`find_block_separators` -- median spacing/height statistics and
     the Shafait tall-rect score (layout_analysis.rs:83-155).
   * :func:`find_text_lines` -- separator-aware line grouping + greedy
-    paragraph clustering into reading order (layout_analysis.rs:158-232).
+    paragraph clustering into reading order (layout_analysis.rs:158-232);
+    :func:`find_text_lines_idx_arrays` is the same in one native call, from
+    rect component arrays.
   * :func:`is_vertical_line`, :func:`merge_vertical_chains` -- the
     vertical-text post-pass (no upstream counterpart).
 """
@@ -27,6 +29,7 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from . import native
 from .geometry import Line, Rect, RotatedRect, point
 
 # Minimum vertical overlap (px) for two words to share a line
@@ -106,6 +109,12 @@ class _WordIndex:
         self.ry1 = np.maximum(sorted_y[:, 2], sorted_y[:, 3])
 
 
+def group_into_lines(
+    rects: Sequence[RotatedRect], separators: Sequence[Line] = ()
+) -> list[list[RotatedRect]]:
+    return [[rects[i] for i in line] for line in _group_into_lines_idx(rects, separators)]
+
+
 def _group_into_lines_idx(
     rects: Sequence[RotatedRect],
     separators: Sequence[Line] = (),
@@ -118,6 +127,24 @@ def _group_into_lines_idx(
         return []
     if idx is None:
         idx = _WordIndex(rects)
+
+    # Native route (identical semantics, see native/ocrs_native.cpp).
+    feat = np.stack(
+        [idx.cx, idx.cy, idx.bleft, idx.lcx, idx.ly0, idx.ly1, idx.rcx, idx.ry0, idx.ry1],
+        axis=1,
+    )
+    seps_arr = (
+        np.array([[s.start[0], s.start[1], s.end[0], s.end[1]] for s in separators])
+        if len(separators)
+        else np.zeros((0, 4))
+    )
+    nat = native.group_lines(feat, seps_arr, float(OVERLAP_THRESHOLD), float(MAX_H_OVERLAP))
+    if nat is not None:
+        line_id, rank, n_lines = nat
+        lines_out: list[list[int]] = [[] for _ in range(n_lines)]
+        for i in np.lexsort((rank, line_id)):
+            lines_out[line_id[i]].append(int(i))
+        return lines_out
 
     # Stable sort by integer left coordinate (upstream sorts by
     # `bounding_rect().left() as i32`; ties keep input order). All arrays are
@@ -180,6 +207,25 @@ def _group_into_lines_idx(
             last = best
         lines.append([int(order[i]) for i in line])
     return lines
+
+
+def max_empty_rects(
+    obstacles: Sequence[Rect],
+    boundary: Rect,
+    score: Callable[[Rect], float],
+    min_width: float,
+    min_height: float,
+) -> Iterator[Rect]:
+    """Yield obstacle-free rects inside `boundary` in decreasing score order
+    (see :func:`_max_empty_rects_tlbr`)."""
+    obs_sorted = sorted(obstacles, key=lambda o: (int(o.center()[0]), int(o.center()[1])))
+    yield from _max_empty_rects_tlbr(
+        np.array([[o.top, o.left, o.bottom, o.right] for o in obs_sorted], dtype=np.float64).reshape(-1, 4),
+        (boundary.top, boundary.left, boundary.bottom, boundary.right),
+        lambda t, l, b, r: score(Rect.from_tlbr(t, l, b, r)),
+        min_width,
+        min_height,
+    )
 
 
 def _max_empty_rects_tlbr(
@@ -313,8 +359,85 @@ def find_block_separators(
 
     min_width = median_word_spacing * 3
     min_height = 3 * max(median_height, 0)
+
+    nat = native.find_separators(obs, page, min_width, min_height, 0.5, 80)
+    if nat is not None:
+        return [Rect.from_tlbr(*row) for row in nat]
     it = _max_empty_rects_tlbr(obs, page, score, min_width, min_height)
     return list(itertools.islice(filter_overlapping(it, 0.5), 80))
+
+
+def _word_features_arrays(
+    cx: np.ndarray,
+    cy: np.ndarray,
+    ux: np.ndarray,
+    uy: np.ndarray,
+    w: np.ndarray,
+    h: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(feat [n, 9], boxes [n, 4 tlbr]) for the native layout entry, computed
+    straight from rect component arrays (mirrors _WordIndex +
+    _bounding_rects without constructing RotatedRect objects)."""
+    rx, ry = -uy, ux  # rot90(up)
+    rwx, rwy = rx * (w / 2.0), ry * (w / 2.0)
+    uhx, uhy = ux * (h / 2.0), uy * (h / 2.0)
+    cs_x = np.stack(
+        [cx + rwx - uhx, cx - rwx - uhx, cx - rwx + uhx, cx + rwx + uhx], axis=1
+    )
+    cs_y = np.stack(
+        [cy + rwy - uhy, cy - rwy - uhy, cy - rwy + uhy, cy + rwy + uhy], axis=1
+    )
+    order = np.argsort(cs_x, axis=1, kind="stable")
+    sx = np.take_along_axis(cs_x, order, axis=1)
+    sy = np.take_along_axis(cs_y, order, axis=1)
+    feat = np.stack(
+        [
+            cx,
+            cy,
+            cs_x.min(axis=1),
+            (sx[:, 0] + sx[:, 1]) / 2.0,
+            np.minimum(sy[:, 0], sy[:, 1]),
+            np.maximum(sy[:, 0], sy[:, 1]),
+            (sx[:, 2] + sx[:, 3]) / 2.0,
+            np.minimum(sy[:, 2], sy[:, 3]),
+            np.maximum(sy[:, 2], sy[:, 3]),
+        ],
+        axis=1,
+    )
+    ext_x = np.abs(rx) * (w / 2.0) + np.abs(ux) * (h / 2.0)
+    ext_y = np.abs(ry) * (w / 2.0) + np.abs(uy) * (h / 2.0)
+    boxes = np.stack([cy - ext_y, cx - ext_x, cy + ext_y, cx + ext_x], axis=1)
+    return feat, boxes
+
+
+def find_text_lines_idx_arrays(
+    cx: np.ndarray,
+    cy: np.ndarray,
+    ux: np.ndarray,
+    uy: np.ndarray,
+    w: np.ndarray,
+    h: np.ndarray,
+) -> Optional[list[list[int]]]:
+    """The whole of :func:`find_text_lines` in one native call, from rect
+    component arrays: word index lists per line, lines in reading order, or
+    None when the native library is not available (callers then run
+    :func:`find_text_lines` over constructed rects). One C call replaces the
+    Python glue between the three layout kernels."""
+    n = len(cx)
+    if n == 0:
+        return []
+    feat, boxes = _word_features_arrays(cx, cy, ux, uy, w, h)
+    median_height = float(round(float(h[n // 2])))
+    res = native.find_text_lines(
+        feat, boxes, median_height, float(OVERLAP_THRESHOLD), float(MAX_H_OVERLAP)
+    )
+    if res is None:
+        return None
+    out_word, out_line, n_lines = res
+    lines: list[list[int]] = [[] for _ in range(n_lines)]
+    for widx, lid in zip(out_word.tolist(), out_line.tolist()):
+        lines[lid].append(widx)
+    return lines
 
 
 def find_text_lines(words: Sequence[RotatedRect]) -> list[list[RotatedRect]]:

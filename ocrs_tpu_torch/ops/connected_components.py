@@ -66,40 +66,40 @@ def component_boundary_points(labels: np.ndarray, count: int) -> list[np.ndarray
 
 
 def _pad2d(x: torch.Tensor, pads: tuple[int, int, int, int], value) -> torch.Tensor:
-    """Constant padding of an [H, W] tensor of any dtype; `pads` is
-    (top, bottom, left, right)."""
+    """Constant padding of the last two axes of an [..., H, W] tensor of any
+    dtype; `pads` is (top, bottom, left, right)."""
     top, bottom, left, right = pads
-    h, w = x.shape
-    out = x.new_full((h + top + bottom, w + left + right), value)
-    out[top : top + h, left : left + w] = x
+    h, w = x.shape[-2:]
+    out = x.new_full((*x.shape[:-2], h + top + bottom, w + left + right), value)
+    out[..., top : top + h, left : left + w] = x
     return out
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int, value) -> torch.Tensor:
-    """out[y, x] = x[y + dy, x + dx], `value` where that falls outside."""
-    h, w = x.shape
+    """out[..., y, x] = x[..., y + dy, x + dx], `value` where that falls outside."""
+    h, w = x.shape[-2:]
     p = _pad2d(x, (1, 1, 1, 1), value)
-    return p[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+    return p[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
 
 
 _NEIGHBOURS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 
 
 def _dilate3(mask: torch.Tensor) -> torch.Tensor:
-    h, w = mask.shape
+    h, w = mask.shape[-2:]
     p = _pad2d(mask, (1, 1, 1, 1), False)
-    out = p[0:h, 0:w].clone()
+    out = p[..., 0:h, 0:w].clone()
     for dy, dx in _NEIGHBOURS[1:]:
-        out |= p[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+        out |= p[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
     return out
 
 
 def _erode3(mask: torch.Tensor) -> torch.Tensor:
-    h, w = mask.shape
+    h, w = mask.shape[-2:]
     p = _pad2d(mask, (1, 1, 1, 1), False)
-    out = p[0:h, 0:w].clone()
+    out = p[..., 0:h, 0:w].clone()
     for dy, dx in _NEIGHBOURS[1:]:
-        out &= p[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+        out &= p[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
     return out
 
 
@@ -177,20 +177,28 @@ def label_components_device(
 
 
 def _ranked_scatter(
-    keep: torch.Tensor, values: tuple[torch.Tensor, ...], size: int, fill: int
+    keep: torch.Tensor, values: tuple[torch.Tensor, ...], size: int, fill: int, batched: bool = False
 ) -> tuple[torch.Tensor, ...]:
     """Compaction without a sort: the first `size` flat positions where
     `keep` is set, in raster order, each `values[i]` gathered there, into
     tables of length `size` filled with `fill`. Positions beyond the cap go
-    to one spare slot that is cut off."""
-    keep = keep.reshape(-1)
-    rank = torch.cumsum(keep, 0) - 1
+    to one spare slot that is cut off.
+
+    With `batched` the first axis of `keep` and of every value is a batch
+    axis: each item is compacted on its own, into [B, size] tables, by the
+    same launches (item b's slots lie ``b * (size + 1)`` further on in one
+    flat table)."""
+    b = keep.shape[0] if batched else 1
+    keep = keep.reshape(b, -1)
+    rank = torch.cumsum(keep, 1) - 1
     dest = torch.where(keep & (rank < size), rank, size)
+    dest = (dest + torch.arange(b, device=keep.device)[:, None] * (size + 1)).reshape(-1)
     out = []
     for v in values:
-        table = torch.full((size + 1,), fill, dtype=torch.int64, device=keep.device)
+        table = torch.full((b * (size + 1),), fill, dtype=torch.int64, device=keep.device)
         table.scatter_(0, dest, v.reshape(-1).to(torch.int64))
-        out.append(table[:size])
+        table = table.reshape(b, size + 1)[:, :size]
+        out.append(table if batched else table[0])
     return tuple(out)
 
 
@@ -289,11 +297,11 @@ def label_components_rungraph(
 
 
 def _pool2_any(mask: torch.Tensor) -> torch.Tensor:
-    """2x2 any-pooling of a bool mask, zero-padded to even sizes."""
-    h, w = mask.shape
+    """2x2 any-pooling of an [..., H, W] bool mask, zero-padded to even sizes."""
+    h, w = mask.shape[-2:]
     ph, pw = (h + 1) // 2 * 2, (w + 1) // 2 * 2
     m = _pad2d(mask, (0, ph - h, 0, pw - w), False)
-    return m.reshape(ph // 2, 2, pw // 2, 2).any(dim=3).any(dim=1)
+    return m.reshape(*mask.shape[:-2], ph // 2, 2, pw // 2, 2).any(dim=-1).any(dim=-2)
 
 
 def label_components_multigrid(

@@ -2,9 +2,12 @@
 
 Port of ``ocrs_tpu.ops.ctc``. Label 0 is the CTC blank; label ``i`` maps to
 ``alphabet[i - 1]``. Decoded steps carry the input frame where each character
-was first emitted. The beam search is the pure-Python decoder; the device
-reduces the log-probs to the per-frame top-k candidates first, so that only
-those cross to the host.
+was first emitted. The device reduces the log-probs to the per-frame argmax
+(greedy) or top-k candidates (beam), so that only those cross to the host;
+the collapse and the prefix beam then run in C++ (:mod:`ocrs_tpu_torch.native`)
+when that library is available, else in numpy and Python, with the same
+results. The ``*_arrays`` forms return ``(pos, label)`` int32 array pairs
+instead of :class:`CtcStep` objects, for the page pipeline.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from .. import native
 
 
 @dataclass(frozen=True)
@@ -65,16 +70,37 @@ def collapse_greedy(labels: np.ndarray) -> list[CtcStep]:
     return collapse_greedy_batch(np.asarray(labels)[None])[0]
 
 
-def collapse_greedy_batch(labels: np.ndarray) -> list[list[CtcStep]]:
-    """:func:`collapse_greedy` over a [N, T] batch, vectorized over frames."""
-    labels = np.asarray(labels).astype(np.int64)
-    prev = np.concatenate([np.zeros((labels.shape[0], 1), np.int64), labels[:, :-1]], axis=1)
+def _steps(pos: np.ndarray, lab: np.ndarray) -> list[CtcStep]:
+    return [CtcStep(pos=int(p), label=int(l)) for p, l in zip(pos, lab)]
+
+
+def _native_arrays(nat) -> list[tuple[np.ndarray, np.ndarray]]:
+    pos, lab, counts = nat
+    return [(pos[i, : counts[i]], lab[i, : counts[i]]) for i in range(len(counts))]
+
+
+def collapse_greedy_batch_arrays(labels: np.ndarray) -> list[tuple[np.ndarray, np.ndarray]]:
+    """:func:`collapse_greedy` over a [N, T] batch -> ``(pos, label)`` int32
+    array pairs per line. The page pipeline uses this form: building tens of
+    thousands of step objects per page group costs more host time than the
+    collapse itself."""
+    labels = np.asarray(labels)
+    nat = native.ctc_collapse_batch(labels)
+    if nat is not None:
+        return _native_arrays(nat)
+    labels = labels.astype(np.int32)
+    prev = np.concatenate([np.zeros((labels.shape[0], 1), np.int32), labels[:, :-1]], axis=1)
     emit = (labels != 0) & (labels != prev)
     out = []
     for row, keep in zip(labels, emit):
-        pos = np.flatnonzero(keep)
-        out.append([CtcStep(pos=int(p), label=int(row[p])) for p in pos])
+        pos = np.flatnonzero(keep).astype(np.int32)
+        out.append((pos, row[pos]))
     return out
+
+
+def collapse_greedy_batch(labels: np.ndarray) -> list[list[CtcStep]]:
+    """:func:`collapse_greedy` over a [N, T] batch."""
+    return [_steps(pos, lab) for pos, lab in collapse_greedy_batch_arrays(labels)]
 
 
 #: Per-frame candidate-class cap for the device->host beam read-back. A wide
@@ -95,10 +121,18 @@ def beam_candidate_k(width: int, n_classes: int) -> int:
     return min(max(width, 8), BEAM_CANDIDATE_CAP, n_classes)
 
 
+def _topk_stable(logprobs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest classes of every frame, values descending, equal values
+    in order of class id, as ``jax.lax.top_k`` orders them (``torch.topk``
+    leaves the order of ties open, and bf16 logits do tie)."""
+    vals, idx = torch.sort(logprobs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def beam_topk(logprobs: torch.Tensor, k: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-frame top-k candidates on the device: (vals, idx u8), [N, T, k]
     each, values descending."""
-    vals, idx = torch.topk(logprobs, k, dim=-1)
+    vals, idx = _topk_stable(logprobs, k)
     return vals, idx.to(torch.uint8)
 
 
@@ -110,7 +144,7 @@ def beam_topk_packed(logprobs: torch.Tensor, k: int = 8, gap: float | None = Non
     ``gap``: candidate values below ``frame_max - gap`` become -inf. Top-k
     order puts masked entries at the tail, so the candidate list stays a
     descending prefix."""
-    vals, idx = torch.topk(logprobs, k, dim=-1)
+    vals, idx = _topk_stable(logprobs, k)
     if gap is not None:
         vals = torch.where(vals < vals[..., :1] - gap, float("-inf"), vals)
     vb = vals.to(torch.float32).contiguous().view(torch.uint8)  # [N, T, 4k]
@@ -135,24 +169,59 @@ def _topk_to_full(vals: np.ndarray, idx: np.ndarray, n_classes: int) -> np.ndarr
     return full
 
 
+def _beam_arrays(steps: list[CtcStep]) -> tuple[np.ndarray, np.ndarray]:
+    return (
+        np.array([s.pos for s in steps], dtype=np.int32),
+        np.array([s.label for s in steps], dtype=np.int32),
+    )
+
+
+def beam_decode_topk_arrays(
+    vals: np.ndarray, idx: np.ndarray, beam_width: int, n_classes: int
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Batched beam decode from device top-k read-backs ([N, T, K] each) ->
+    ``(pos, label)`` int32 array pairs per line."""
+    vals = np.asarray(vals, dtype=np.float32)
+    idx = np.asarray(idx, dtype=np.int32)
+    nat = native.ctc_beam_topk(vals, idx, beam_width)
+    if nat is not None:
+        return _native_arrays(nat)
+    return [
+        _beam_arrays(beam_decode(_topk_to_full(vals[i], idx[i], n_classes), beam_width))
+        for i in range(vals.shape[0])
+    ]
+
+
 def beam_decode_topk(
     vals: np.ndarray, idx: np.ndarray, beam_width: int, n_classes: int
 ) -> list[list[CtcStep]]:
-    """Batched beam decode from device top-k read-backs ([N, T, K] each)."""
-    vals = np.asarray(vals, dtype=np.float32)
-    idx = np.asarray(idx, dtype=np.int32)
-    return [
-        beam_decode(_topk_to_full(vals[i], idx[i], n_classes), beam_width)
-        for i in range(vals.shape[0])
-    ]
+    """:func:`beam_decode_topk_arrays` as :class:`CtcStep` lists."""
+    return [_steps(pos, lab) for pos, lab in beam_decode_topk_arrays(vals, idx, beam_width, n_classes)]
+
+
+def beam_decode_batch_arrays(
+    logprobs: np.ndarray, beam_width: int, excluded: Optional[Sequence[int]] = None
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """CTC prefix beam search over [N, T, C] log-probabilities ->
+    ``(pos, label)`` int32 array pairs per line: the C++ beam over the
+    per-frame top ``max(width, 8)`` candidates (the pruning of
+    :func:`beam_decode`), or :func:`beam_decode` line by line."""
+    lp = np.asarray(logprobs)
+    onehot = None
+    if excluded:
+        onehot = np.zeros((lp.shape[-1],), dtype=np.uint8)
+        onehot[list(excluded)] = 1
+    nat = native.ctc_beam_batch(lp, beam_width, onehot)
+    if nat is not None:
+        return _native_arrays(nat)
+    return [_beam_arrays(beam_decode(lp[i], beam_width, excluded)) for i in range(lp.shape[0])]
 
 
 def beam_decode_batch(
     logprobs: np.ndarray, beam_width: int, excluded: Optional[Sequence[int]] = None
 ) -> list[list[CtcStep]]:
-    """CTC prefix beam search over [N, T, C] log-probabilities, line by line."""
-    lp = np.asarray(logprobs)
-    return [beam_decode(lp[i], beam_width, excluded) for i in range(lp.shape[0])]
+    """:func:`beam_decode_batch_arrays` as :class:`CtcStep` lists."""
+    return [_steps(pos, lab) for pos, lab in beam_decode_batch_arrays(logprobs, beam_width, excluded)]
 
 
 def beam_decode(

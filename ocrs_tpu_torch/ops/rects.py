@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..geometry import RotatedRect, min_area_rect
 from ..utils.log import warn
 from .connected_components import (
@@ -194,22 +195,22 @@ def rects_from_mask_device(
 
 
 def _runs_of(mask: torch.Tensor, k_row: int, max_runs: int):
-    """[h, w] bool -> (row, xs, xe) int64 [max_runs] each, raster order,
-    -1-padded, and the number of runs dropped. Rows with more than `k_row`
-    runs lose the rightmost extras; then the table keeps the first
-    `max_runs`."""
-    h, w = mask.shape
+    """[B, h, w] bool -> (row, xs, xe) int64 [B, max_runs] each, raster
+    order, -1-padded, and the number of runs dropped, [B]. Rows with more
+    than `k_row` runs lose the rightmost extras; then each page's table
+    keeps its first `max_runs`."""
+    b, h, w = mask.shape
     rs = mask & ~_shift(mask, 0, -1, False)
     re = mask & ~_shift(mask, 0, 1, False)
-    col = torch.arange(w, dtype=torch.int64, device=mask.device).expand(h, w)
-    row = torch.arange(h, dtype=torch.int64, device=mask.device)[:, None].expand(h, w)
-    keep_s = rs & ((torch.cumsum(rs, 1) - 1) < k_row)
-    keep_e = re & ((torch.cumsum(re, 1) - 1) < k_row)
+    col = torch.arange(w, dtype=torch.int64, device=mask.device).expand(b, h, w)
+    row = torch.arange(h, dtype=torch.int64, device=mask.device)[:, None].expand(b, h, w)
+    keep_s = rs & ((torch.cumsum(rs, 2) - 1) < k_row)
+    keep_e = re & ((torch.cumsum(re, 2) - 1) < k_row)
     # The i-th kept end of a row closes its i-th kept start, so both rank
     # alike in raster order.
-    row_o, xs_o = _ranked_scatter(keep_s, (row, col), max_runs, -1)
-    (xe_o,) = _ranked_scatter(keep_e, (col,), max_runs, -1)
-    dropped = rs.sum() - (row_o >= 0).sum()
+    row_o, xs_o = _ranked_scatter(keep_s, (row, col), max_runs, -1, batched=True)
+    (xe_o,) = _ranked_scatter(keep_e, (col,), max_runs, -1, batched=True)
+    dropped = rs.sum(dim=(1, 2)) - (row_o >= 0).sum(dim=1)
     return row_o, xs_o, xe_o, dropped
 
 
@@ -221,7 +222,9 @@ def runs_tables(
     max_runs: int = 4096,
     k_row: int = 48,
 ) -> torch.Tensor:
-    """Reduce a [H, W] bool mask to packed run tables, int16 [7, max_runs]:
+    """Reduce a [H, W] bool mask to packed run tables, int16 [7, max_runs];
+    a [B, H, W] stack of masks to [B, 7, max_runs], each page as if alone,
+    with the launches of one page:
 
     * channels 0-2: ORIG runs (row, xs, xe) of the raw mask at full
       resolution, the exact pixel extents for rect fitting;
@@ -232,28 +235,35 @@ def runs_tables(
       dropped.
 
     Consumed by :func:`runs_to_rect_table_host`."""
-    mask = mask.to(torch.bool)
+    single = mask.dim() == 2
+    mask = mask.to(torch.bool).reshape(-1, *mask.shape[-2:])
     conn = _pool2_any(mask) if pool == 2 else mask
     if solidify:
         conn = _close3(conn)
     o_row, o_xs, o_xe, o_drop = _runs_of(mask, k_row, max_runs)
     c_row, c_xs, c_xe, c_drop = _runs_of(conn, k_row, max_runs)
-    extras = torch.zeros(max_runs, dtype=torch.int64, device=mask.device)
-    extras[0] = o_drop.clamp_max(32767)
-    extras[1] = c_drop.clamp_max(32767)
-    return torch.stack([o_row, o_xs, o_xe, c_row, c_xs, c_xe, extras]).to(torch.int16)
+    extras = torch.zeros((mask.shape[0], max_runs), dtype=torch.int64, device=mask.device)
+    extras[:, 0] = o_drop.clamp_max(32767)
+    extras[:, 1] = c_drop.clamp_max(32767)
+    tables = torch.stack([o_row, o_xs, o_xe, c_row, c_xs, c_xe, extras], dim=1).to(torch.int16)
+    return tables[0] if single else tables
 
 
 def runs_to_rect_table_host(runs: np.ndarray, pool: int, max_components: int) -> dict:
     """Host tail of the run-table path: union-find over conn runs, orig-run
-    containment mapping, exact min-area rects, in numpy and Python.
+    containment mapping, exact min-area rects: in C++ (``oc_runs_to_rects``)
+    when the native library is available, else in numpy and Python with the
+    same semantics.
 
     `runs`: int16 [B, 7, K] from :func:`runs_tables` (batched). Returns the
     unpacked rect-table dict of :func:`unpack_rect_table`."""
     runs = np.asarray(runs)
     assert runs.shape[1] >= 7, "expected [B, 7, K] packed run tables"
     table_drop = runs[:, 6, 0].astype(np.int32) + runs[:, 6, 1].astype(np.int32)
-    packed = _runs_to_rects_numpy(runs[:, :6], pool, max_components)
+    # oc_runs_to_rects takes the six run channels, contiguous.
+    packed = native.runs_to_rects(np.ascontiguousarray(runs[:, :6]), pool, max_components)
+    if packed is None:
+        packed = _runs_to_rects_numpy(runs[:, :6], pool, max_components)
     out = {f: packed[:, i, :] for i, f in enumerate(PACK_FIELDS)}
     out["valid"] = out["valid"] > 0.5
     out["count"] = out["count"].astype(np.int32)

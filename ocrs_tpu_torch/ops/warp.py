@@ -1,9 +1,8 @@
 """Batched text-line extraction on the engine's device.
 
-Port of ``ocrs_tpu.ops.warp`` as plain tensor code (``pad_chain``,
-``extract_line_batch_packed``, ``_extract_impl``, ``_sample_coords``,
-``_band_mask``, ``extract_line_batch_rotated``). A whole batch of lines is cut
-from the page at once:
+Port of ``ocrs_tpu.ops.warp`` as plain tensor code. A whole batch of lines is
+cut from one page, or from a stack of pages with a page index per line, at
+once:
 
   * separable bilinear resampling: a row-gather pass (vertical), then a
     column-gather pass (horizontal), with the half-pixel law of
@@ -13,8 +12,12 @@ from the page at once:
     per-column [ytop(x), ybot(x)] band.
 
 :func:`extract_line_batch_rotated` instead samples along a rotated rect's
-own axes (deskew, vertical text), four taps per output pixel. The page-stack
-form of the axis-aligned path arrives with the page pipeline.
+own axes (deskew, vertical text), four taps per output pixel.
+
+:func:`mask_normalize_crops` and :func:`strip_mask_normalize_crops` finish
+crops that the host extracted as ``uint8`` (the page pipeline's low-bandwidth
+transport, :func:`ocrs_tpu_torch.native.extract_lines_strip`): they normalize
+and apply the identical band, in-page and width mask from the geometry alone.
 """
 
 from __future__ import annotations
@@ -45,9 +48,33 @@ def pad_chain(points: np.ndarray, max_v: int) -> np.ndarray:
 
 
 def extract_line_batch_packed(
-    page: torch.Tensor,  # [H, W] normalized greyscale page
+    page: torch.Tensor,  # [H, W] or [P, H, W] normalized greyscale page(s)
     geom: torch.Tensor,  # [6, N] f32: top, left, height, width, rwidth, page_idx
     chains: torch.Tensor,  # [N, 2, V, 2] f32: top and bottom polygon chains
+    *,
+    out_h: int,
+    out_w: int,
+) -> torch.Tensor:
+    """:func:`extract_line_batch` with the per-line geometry packed into two
+    tensors, so that a batch costs two uploads (the page index rides as
+    float32, exact below 2^24 pages)."""
+    page_idx = geom[5].to(torch.int64) if page.dim() == 3 else None
+    return _extract_impl(
+        page, geom[0], geom[1], geom[2], geom[3], geom[4],
+        chains[:, 0], chains[:, 1], page_idx, out_h=out_h, out_w=out_w,
+    )
+
+
+def extract_line_batch(
+    page: torch.Tensor,  # [H, W] or [P, H, W] normalized greyscale page(s)
+    tops: torch.Tensor,  # [N] f32 line-rect top
+    lefts: torch.Tensor,  # [N] f32 line-rect left
+    heights: torch.Tensor,  # [N] f32 line-rect height
+    line_widths: torch.Tensor,  # [N] f32 line-rect width
+    resized_widths: torch.Tensor,  # [N] f32 per-line resized width (<= out_w)
+    top_chain: torch.Tensor,  # [N, V, 2] upper polygon chain (x, y)
+    bot_chain: torch.Tensor,  # [N, V, 2] lower polygon chain (x, y)
+    page_idx: torch.Tensor | None = None,  # [N] integer, required when page is 3-D
     *,
     out_h: int,
     out_w: int,
@@ -56,13 +83,13 @@ def extract_line_batch_packed(
 
     Output column x of line n samples page position
     ``left + (x + 0.5) * line_width / resized_width - 0.5``, rows likewise;
-    columns beyond ``resized_width`` are BLACK padding."""
-    if page.dim() != 2:
-        raise NotImplementedError("page stacks arrive with the page pipeline; pass one [H, W] page")
-    tops, lefts, heights, line_widths, resized_widths = (geom[i] for i in range(5))
+    columns beyond ``resized_width`` are BLACK padding.
+
+    When `page` is a [P, H, W] stack, `page_idx` maps each line to its page:
+    one pooled batch can span a whole group of pages."""
     return _extract_impl(
         page, tops, lefts, heights, line_widths, resized_widths,
-        chains[:, 0], chains[:, 1], out_h=out_h, out_w=out_w,
+        top_chain, bot_chain, page_idx, out_h=out_h, out_w=out_w,
     )
 
 
@@ -125,7 +152,7 @@ def _band_mask(
 
 def _extract_impl(
     page, tops, lefts, heights, line_widths, resized_widths,
-    top_chain, bot_chain, *, out_h: int, out_w: int,
+    top_chain, bot_chain, page_idx=None, *, out_h: int, out_w: int,
 ) -> torch.Tensor:
     ph, pw = page.shape[-2], page.shape[-1]
     n = tops.shape[0]
@@ -138,7 +165,14 @@ def _extract_impl(
     wy = (in_y - y0)[..., None]  # [N, out_h, 1]
     y0i = y0.to(torch.int64).clamp(0, ph - 1)
     y1i = (y0i + 1).clamp(0, ph - 1)
-    vert = page[y0i] * (1.0 - wy) + page[y1i] * wy  # [N, out_h, pw]
+    if page.dim() == 3:
+        if page_idx is None:
+            raise ValueError("page_idx is required for a page stack")
+        pi = page_idx.to(torch.int64)[:, None]
+        rows0, rows1 = page[pi, y0i], page[pi, y1i]
+    else:
+        rows0, rows1 = page[y0i], page[y1i]
+    vert = rows0 * (1.0 - wy) + rows1 * wy  # [N, out_h, pw]
 
     # Horizontal pass: two columns per output column.
     x0 = torch.floor(in_x)
@@ -220,3 +254,71 @@ def extract_line_batch_rotated(
     valid_col = xs[None, None, :] < rwidth[:, None, None]
     out = torch.where(in_page & valid_col, samples, torch.full_like(samples, BLACK_VALUE))
     return out[:, None, :, :]
+
+
+def _unpack4(x: torch.Tensor) -> torch.Tensor:
+    """[..., W/2] uint8 holding two 4-bit pixels per byte (high nibble = even
+    column) -> [..., W] uint8, dequantized as nibble * 17 (0..15 -> 0..255)."""
+    return torch.stack([x >> 4, x & 0xF], dim=-1).reshape(*x.shape[:-1], x.shape[-1] * 2) * 17
+
+
+def _mask_normalize(crops_u8: torch.Tensor, geom: torch.Tensor, chains: torch.Tensor, page_hw) -> torch.Tensor:
+    """[N, out_h, out_w] uint8 crops -> normalized, masked [N, 1, out_h, out_w]."""
+    out_h, out_w = crops_u8.shape[1], crops_u8.shape[2]
+    crops = crops_u8.to(torch.float32) / 255.0 + BLACK_VALUE
+    mask = _band_mask(
+        geom[0], geom[1], geom[2], geom[3], geom[4],
+        chains[:, 0], chains[:, 1], page_hw[0], page_hw[1], out_h, out_w,
+    )
+    return torch.where(mask, crops, torch.full_like(crops, BLACK_VALUE))[:, None, :, :]
+
+
+def mask_normalize_crops(
+    crops_u8: torch.Tensor,  # [N, out_h, out_w] u8 (pack4: [N, out_h, ceil(w/2)])
+    geom: torch.Tensor,  # [6, N] f32 (extract_line_batch_packed layout)
+    chains: torch.Tensor,  # [N, 2, V, 2] f32 top/bottom polygon chains
+    *,
+    page_hw: tuple[int, int],
+    pack4: bool = False,
+) -> torch.Tensor:
+    """Finish host-extracted line crops on the device -> [N, 1, out_h, out_w].
+
+    The crops were bilinear-resized on the host with this module's sampling
+    law (:func:`ocrs_tpu_torch.native.extract_lines`); what remains is the
+    normalization and the polygon band / in-page / width mask, which depend
+    on the geometry alone. So the mask is bit-identical to that of
+    :func:`extract_line_batch`, and the pixels differ only by the uint8
+    rounding of the host's resize.
+
+    ``pack4``: crops carry two 4-bit pixels per byte (high nibble = even
+    column), dequantized as nibble * 17."""
+    if pack4:
+        crops_u8 = _unpack4(crops_u8)
+    return _mask_normalize(crops_u8, geom, chains, page_hw)
+
+
+def strip_mask_normalize_crops(
+    strip_u8: torch.Tensor,  # [out_h, total_w] u8 (pack4: [out_h, total_w//2])
+    offs: torch.Tensor,  # [N] integer strip column offset of each line's segment
+    geom: torch.Tensor,  # [6, N] f32 (extract_line_batch_packed layout)
+    chains: torch.Tensor,  # [N, 2, V, 2] f32 top/bottom polygon chains
+    *,
+    page_hw: tuple[int, int],
+    pack4: bool = False,
+    out_w: int,
+) -> torch.Tensor:
+    """Finish STRIP-packed host crops on the device -> [N, 1, out_h, out_w].
+
+    :func:`ocrs_tpu_torch.native.extract_lines_strip` lays every line at its
+    own resized width side by side along the column axis, without the
+    padding to the batch's widest line. Each line's ``out_w``-wide window is
+    gathered back out of the strip; columns past a line's segment read the
+    neighbouring segment, which is harmless because the mask of
+    :func:`mask_normalize_crops` blacks every column >= resized_width."""
+    if pack4:
+        strip_u8 = _unpack4(strip_u8)
+    total_w = strip_u8.shape[1]
+    cols = torch.arange(out_w, dtype=torch.int64, device=strip_u8.device)
+    idx = (offs.to(torch.int64)[:, None] + cols[None, :]).clamp(0, total_w - 1)  # [N, out_w]
+    crops_u8 = strip_u8[:, idx].permute(1, 0, 2)  # [N, out_h, out_w]
+    return _mask_normalize(crops_u8, geom, chains, page_hw)

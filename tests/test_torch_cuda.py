@@ -249,3 +249,98 @@ def test_rotated_extraction_and_beam_reduction_on_card_match_cpu():
     lp = torch.log_softmax(4.0 * torch.randn(3, 50, 97, generator=g), dim=-1)
     assert torch.equal(beam_topk_packed(lp.cuda(), k=8, gap=10.0).cpu(), beam_topk_packed(lp, k=8, gap=10.0))
     torch.testing.assert_close(text_confidence(lp.cuda()).cpu(), text_confidence(lp), rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The page pipeline: the kernel at its batch of 128 lines, the card against
+# the CPU, the native loader on the card's machine.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 100])
+def test_bigru_kernel_at_the_pipelines_batch_on_card(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = gru.launch_plan(n, 192)
+    assert plan["tiles"] == -(-n // 16) and plan["cluster"] == 8
+    xps, rec = _bigru_operands(608, n, 192, strided=True, seed=3)
+    out = torch.full((n, 608, 384), float("nan"), device="cuda")
+    before = gru.bigru_sequence.launches
+    gru.bigru_sequence(*xps, *rec, out=out.transpose(0, 1))
+    torch.cuda.synchronize()
+    assert gru.bigru_sequence.launches == before + 1
+    # As at N=20: float32 on both sides, sums in another order, __expf.
+    torch.testing.assert_close(out.transpose(0, 1), gru.bigru_sequence_reference(*xps, *rec), rtol=0, atol=1e-4)
+
+
+def _text_pages():
+    """The text page of chip_smoke.py and three variants of it, [4, 160, 420] uint8."""
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+
+    repo = str(Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    lines = chip_smoke.TEXT_LINES
+    pages = [chip_smoke.text_page(), chip_smoke.text_page(lines[::-1]), chip_smoke.text_page(left=44, top=30), chip_smoke.text_page(lines[:1])]
+    return np.stack([p[..., 0] for p in pages]), list(lines)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["hbm", "lowbw"])
+def test_pipeline_on_card_reads_what_the_cpu_reads(transport):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+    from pathlib import Path
+
+    import ocrs_tpu_torch as ot
+    from ocrs_tpu_torch import native
+    from ocrs_tpu_torch.models.weights import load_detection_model, load_recognition_model
+
+    native.require()
+    weights = Path(__file__).resolve().parent.parent / "weights"
+    det = load_detection_model(weights / "text-detection.npz")
+    rec = load_recognition_model(weights / "text-recognition.npz")
+    det_cpu, rec_cpu = copy.deepcopy(det), copy.deepcopy(rec)
+    pages, lines = _text_pages()
+    kw = dict(transport=transport, transport_pack4=False)
+    on_cpu = ot.PagePipeline(det_cpu, rec_cpu, ot.DEFAULT_ALPHABET, device="cpu", **kw).process(pages)
+    pipe = ot.PagePipeline(det, rec, ot.DEFAULT_ALPHABET, **kw)
+    assert pipe.device.type == "cuda" and pipe._copy_stream is not None
+    on_card = pipe.process(pages)
+    assert [r.text for r in on_card] == [r.text for r in on_cpu]
+    assert on_card[0].text.splitlines() == lines
+    assert [len(r.words) for r in on_card] == [len(r.words) for r in on_cpu]
+    # The stream stages on its own CUDA stream and returns the groups in order.
+    groups = [pages, pages[::-1].copy(), pages[:2]]
+    streamed = pipe.process_stream(groups)
+    assert [[r.text for r in g] for g in streamed] == [[r.text for r in pipe.process(g)] for g in groups]
+
+
+@pytest.mark.cuda
+def test_crnn_pipeline_on_card_launches_the_kernel_twice_per_batch():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from pathlib import Path
+
+    import ocrs_tpu_torch as ot
+    from ocrs_tpu_torch.models.recognition_net import RecognitionModel
+    from ocrs_tpu_torch.models.weights import load_detection_model
+
+    det = load_detection_model(Path(__file__).resolve().parent.parent / "weights" / "text-detection.npz")
+    rec = RecognitionModel.create(seed=0, arch="crnn")
+    pages, _ = _text_pages()
+    pipe = ot.PagePipeline(det, rec, ot.DEFAULT_ALPHABET, max_lines_per_batch=4)
+    before = gru.bigru_sequence.launches
+    results = pipe.process(pages)
+    n_lines = sum(len(r.lines) for r in results)
+    assert n_lines == 7
+    assert gru.bigru_sequence.launches == before + 2 * -(-n_lines // 4)

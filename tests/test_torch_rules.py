@@ -57,7 +57,7 @@ def test_importing_every_port_module_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 20 and bad.strip() == "[]"
+    assert int(count) >= 26 and bad.strip() == "[]"
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -69,6 +69,50 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert ocrs_tpu_torch.OcrEngine(device="cpu").device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert tengine.resolve_device(None) == torch.device("cuda")
+
+
+def test_pipeline_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from ocrs_tpu_torch.models.fakes import FakeDetectionModel, FakeRecognitionModel
+
+    make = lambda **kw: ocrs_tpu_torch.PagePipeline(FakeDetectionModel(), FakeRecognitionModel(), "abc", **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make(device="cuda:0")
+    pipe = make(device="cpu")
+    assert pipe.device == torch.device("cpu") and pipe._copy_stream is None
+
+
+def test_lowbw_transport_raises_with_the_builds_reason_when_the_library_cannot_be_built(tmp_path):
+    # A compiler that fails: the loader keeps its output, available() is
+    # false, the numpy routes still run, and asking for "lowbw" raises it.
+    cxx = tmp_path / "cxx"
+    cxx.write_text("#!/bin/sh\necho 'ocrs_native.cpp:1: error: no such toolchain' >&2\nexit 1\n")
+    cxx.chmod(0o755)
+    code = (
+        "import numpy as np, pathlib, ocrs_tpu_torch\n"
+        "from ocrs_tpu_torch import native\n"
+        "from ocrs_tpu_torch.models.fakes import FakeDetectionModel, FakeRecognitionModel\n"
+        f"native._BUILD_DIR = pathlib.Path({str(tmp_path / 'build')!r})\n"
+        "assert not native.available() and 'no such toolchain' in native.build_error()\n"
+        "make = lambda **kw: ocrs_tpu_torch.PagePipeline(FakeDetectionModel(), FakeRecognitionModel(), "
+        "ocrs_tpu_torch.DEFAULT_ALPHABET[:63], device='cpu', **kw)\n"
+        "pages = np.zeros((1, 100, 200), np.uint8); pages[0, 30:50, 20:90] = 255\n"
+        "assert len(make().process(pages)[0].words) == 1\n"
+        "for call in (native.require, lambda: make(transport='lowbw')):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        print(e)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_clean_env(CXX=str(cxx)), capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert sum("no such toolchain" in line for line in lines) == 2
+    assert any("transport='lowbw'" in line for line in lines)
 
 
 def test_kernel_module_runs_plain_version_without_nvcc(tmp_path):
