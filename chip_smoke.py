@@ -56,7 +56,29 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
      on pages dense enough to fill a batch of 128 lines: GRU launches counted
      (zeroed just before, read just after), log-probs against the run with
      the plain GRU, float32 texts equal.
-  10. times: CUDA-event medians of the kernel (one and both directions) at
+  10. serve: ``serve(engine, port=0)`` over the shipped weights and default
+     parameters: /healthz names the card; POST /ocr and /ocr/text of the text
+     page (PNG from ``encode_png``) read what ``get_text`` reads on the same
+     pixels; /ocr/detect has ``detect_words``'s words; the session lifecycle
+     (create, detect, recognize line 0, text, delete, then 404). A
+     ``BatchingOcrService(max_batch=8)`` given eight variants of the text
+     page with its gate closed: one batch, one detection dispatch, each text
+     the engine's. Then the CRNN behind a server with the service: eight
+     concurrent POSTs made one batch; the GRU launches are counted by thread
+     (zeroed just before, read just after) and must be the worker's; the
+     recurrent layer's input captured on the worker holds the kernel against
+     its plain version; line counts equal the engine's, and texts are close
+     to the same batch's with the plain GRU (a random CRNN's text depends on
+     the batch's padded width, so not the engine's). Last, the CRNN
+     engine run by the server's handler threads (four concurrent requests):
+     the kernel launched there. Any unexpected HTTP status fails the phase.
+  11. cli: ``python -m ocrs_tpu_torch.cli`` in four subprocesses started
+     together, on the text page: ``--json`` (on the card by default) reads
+     the engine's text, ``--beam`` a beam engine's, ``--png -o out.png
+     --text-map --text-mask --text-line-images`` (in a temporary directory
+     under ``build/``) writes files that decode with the page's size, and
+     ``--device cpu`` reads the card's text.
+  12. times: CUDA-event medians of the kernel (one and both directions) at
      the engine's batch of 20 lines and the pipeline's of 128, its plain
      version, its two timing-only variants (the step-latency floor), the
      bidirectional layer ``bigru_apply`` beside cuDNN's
@@ -67,7 +89,15 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
      the pipeline at full size: groups of 16 pages of 3508 x 2480 ``uint8``
      drawn by this script, pages per second of ``process_stream`` from host
      pages and from pages on the card, under both transports and with both
-     recognizers, and the fenced stages of one ``process``.
+     recognizers, and the fenced stages of one ``process``. Serving:
+     sequential POST /ocr of the text page beside ``get_text`` on it (the
+     difference is the HTTP, PNG and JSON cost); the batching service
+     (``max_batch=8``, ``max_wait_ms=15``) under SERVE_CLIENTS client
+     threads (in a client process of their own) sending SERVE_REQUESTS_EACH
+     requests each of A4 pages at 150 dpi
+     (requests per second, p50 and p99 latency, the batch sizes), against
+     the same requests one after the other to a server without the service;
+     ``decode_png`` per row filter and ``encode_png`` on one such page.
 
 Then it prints the kernels line, the card's name and power limit, and, as
 the last line, ``{"ok": true, "device": {...}}``. A failed check exits with
@@ -79,6 +109,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -154,6 +185,50 @@ PAGE_HW = (3508, 2480)
 PAGE_LINES, PAGE_PITCH, PAGE_SCALE, PAGE_LEFT, PAGE_SPACE_COLS = 56, 60, 4, 200, 6
 GROUP_PAGES = 16
 BENCH_WORDS = ("Section", "12", "notes", "This", "line", "is", "longer")
+# Pages a server is sent: A4 at 150 dpi, drawn as the full-size pages are at
+# half their scale, pitch and margin.
+A4_150_HW, A4_150_SCALE, A4_150_PITCH, A4_150_LEFT = (1754, 1240), 2, 30, 100
+# The service's load: client threads, each sending its requests one after
+# the other.
+SERVE_CLIENTS, SERVE_REQUESTS_EACH = 8, 8
+
+# The load generator of the serving times: a client process of its own, so
+# that its threads do not share the server's interpreter lock. Arguments: the
+# server's URL, the number of client threads, the requests each sends one
+# after the other, and the PNG files they cycle through (thread c starts at
+# file c). Prints {"seconds", "latencies_ms", "texts" by file, "errors"}.
+LOAD_CLIENT = r"""
+import json, sys, threading, time, urllib.request
+base, clients, each = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+bodies = [open(p, "rb").read() for p in sys.argv[4:]]
+latencies, texts, errors = [], {}, []
+lock = threading.Lock()
+
+def client(c):
+    for k in range(each):
+        i = (c + k) % len(bodies)
+        t0 = time.perf_counter()
+        try:
+            req = urllib.request.Request(base + "/ocr/text", data=bodies[i], method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status, text = r.status, r.read().decode()
+        except Exception as e:
+            status, text = repr(e), ""
+        ms = (time.perf_counter() - t0) * 1e3
+        with lock:
+            latencies.append(ms)
+            texts[i] = text
+            if status != 200:
+                errors.append(status)
+
+threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"seconds": time.perf_counter() - t0, "latencies_ms": latencies, "texts": texts, "errors": errors}))
+"""
 
 failures: list[str] = []
 
@@ -267,21 +342,22 @@ def text_page(lines=TEXT_LINES, hw=(160, 420), scale=3, left=30, top=24, gap=22)
     return np.where(ink, 0, 255).astype(np.uint8)[..., None]
 
 
-def full_page(seed, hw=PAGE_HW):
+def full_page(seed, hw=PAGE_HW, scale=PAGE_SCALE, pitch=PAGE_PITCH, left=PAGE_LEFT):
     """A page of PAGE_LINES lines of 5 to 9 random words at a pitch of
-    PAGE_PITCH pixels -> ((H, W) uint8, the lines as drawn)."""
+    `pitch` pixels, `scale` pixels to a grid cell -> ((H, W) uint8, the
+    lines as drawn)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     ink = np.zeros(hw, bool)
-    top = (hw[0] - PAGE_LINES * PAGE_PITCH) // 2
+    top = (hw[0] - PAGE_LINES * pitch) // 2
     texts = []
     for li in range(PAGE_LINES):
         words = [BENCH_WORDS[i] for i in rng.integers(0, len(BENCH_WORDS), rng.integers(5, 10))]
         text = " ".join(words)
-        line = render_line(text, PAGE_SCALE, PAGE_SPACE_COLS)
-        y = top + li * PAGE_PITCH
-        ink[y : y + line.shape[0], PAGE_LEFT : PAGE_LEFT + line.shape[1]] = line
+        line = render_line(text, scale, PAGE_SPACE_COLS)
+        y = top + li * pitch
+        ink[y : y + line.shape[0], left : left + line.shape[1]] = line
         texts.append(text)
     return np.where(ink, 0, 255).astype(np.uint8), texts
 
@@ -423,6 +499,481 @@ def option_pages(text, wide):
         "ruled": ruled,
         "wide": wide,
     }
+
+
+def http(base, path, data=None, method=None, expect=200):
+    """One request to the server at `base`; an answer other than `expect`
+    fails the phase. Returns the body."""
+    import urllib.error
+    import urllib.request
+
+    method = method or ("POST" if data is not None else "GET")
+    req = urllib.request.Request(base + path, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    check(status == expect, f"serve: {method} {path} answered {status}, not {expect} ({body[:200]!r})")
+    return body
+
+
+def ocr_text(doc):
+    """The text of a /ocr JSON document, lines joined as get_text joins them."""
+    return "\n".join(line["text"] for line in doc["paragraphs"][0]["lines"])
+
+
+def text_variants():
+    """Eight variants of the text page, all (160, 420, 1): the lines in both
+    orders, each at four offsets."""
+    return [
+        text_page(lines, left=left, top=top)
+        for lines in (TEXT_LINES, TEXT_LINES[::-1])
+        for left, top in ((30, 24), (44, 30), (60, 20), (36, 28))
+    ]
+
+
+def bigru_operands(layer, x):
+    """The operands bigru_apply passes bigru_sequence for the BiGRU `layer`
+    on its input `x` [N, T, C]."""
+    import torch
+
+    f32 = torch.float32
+    dirs = (layer.fwd, layer.bwd)
+    xps = [((x @ d.wx.to(x.dtype)).to(f32) + d.bx.to(f32)).transpose(0, 1) for d in dirs]
+    return (*xps, *(t for d in dirs for t in (d.wh.to(f32).contiguous(), d.bh.to(f32).contiguous())))
+
+
+def reset_gru_counts():
+    from ocrs_tpu_torch.ops import gru
+
+    for wrapper in (gru.gru_sequence, gru.bigru_sequence):
+        wrapper.launches = 0
+        wrapper.launches_by_thread.clear()
+
+
+def serve_phase(det, conv, rec, default_engine, crnn_engine):
+    """The serving path on the card: the HTTP server over the default engine,
+    the batching service with ConvCTC and with the CRNN (whose GRU kernel is
+    then launched on the service's worker thread), and the server's handler
+    threads running the CRNN engine themselves. Returns (report, launches by
+    site, the kernel's max |err| on the worker's own GRU input)."""
+    import numpy as np
+    import torch
+
+    from ocrs_tpu_torch.engine import DEFAULT_ALPHABET
+    from ocrs_tpu_torch.ops import gru
+    from ocrs_tpu_torch.png import decode_image, encode_png
+    from ocrs_tpu_torch.preprocess import DimOrder, ImageSource
+    from ocrs_tpu_torch.serve import BatchingOcrService, serve
+
+    def engine_text(eng, img):
+        return eng.get_text(eng.prepare_input(ImageSource.from_tensor(img, DimOrder.HWC)))
+
+    report = {}
+    body = encode_png(text_page())
+    rgb = decode_image(body)
+    want = engine_text(default_engine, rgb)
+    server = serve(default_engine, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        health = json.loads(http(base, "/healthz"))
+        card = torch.cuda.get_device_name(0)
+        check(health.get("status") == "ok" and any(card in d for d in health.get("devices", [])), f"serve: /healthz names the card ({health})")
+        doc = json.loads(http(base, "/ocr", body))
+        check(ocr_text(doc) == want, f"serve: POST /ocr reads what get_text reads ({ocr_text(doc)!r} / {want!r})")
+        check((doc["image_height"], doc["image_width"]) == rgb.shape[:2], "serve: POST /ocr gives the image's size")
+        text = http(base, "/ocr/text", body).decode()
+        check(text == want, f"serve: POST /ocr/text reads what get_text reads ({text!r})")
+        detected = json.loads(http(base, "/ocr/detect", body))["lines"]
+        n_words = sum(len(line["words"]) for line in detected)
+        want_words = len(default_engine.detect_words(default_engine.prepare_input(ImageSource.from_tensor(rgb, DimOrder.HWC))))
+        check(n_words == want_words, f"serve: /ocr/detect has the words detect_words finds ({n_words} / {want_words})")
+        sid = json.loads(http(base, "/session", body))["id"]
+        lines = json.loads(http(base, f"/session/{sid}/detect", b""))["lines"]
+        first = json.loads(http(base, f"/session/{sid}/recognize", json.dumps({"lines": [0]}).encode()))["lines"]
+        check(len(first) == 1 and first[0]["text"] == want.splitlines()[0], f"serve: session recognizes line 0 ({first})")
+        session_text = http(base, f"/session/{sid}/text").decode()
+        check(session_text == want, f"serve: session text ({session_text!r})")
+        deleted = json.loads(http(base, f"/session/{sid}", method="DELETE"))
+        check(deleted == {"deleted": True}, f"serve: DELETE /session ({deleted})")
+        http(base, f"/session/{sid}/detect", b"", expect=404)
+        http(base, "/ocr", b"not an image", expect=400)
+        report["http"] = {
+            "healthz": health,
+            "text": want,
+            "ocr_equals_get_text": ocr_text(doc) == want,
+            "detect_words": n_words,
+            "session_lines": len(lines),
+        }
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    # The batching service with ConvCTC: eight gated submissions, one batch,
+    # one detection dispatch, each text the engine's.
+    variants = text_variants()
+    service = BatchingOcrService(default_engine, det, conv, DEFAULT_ALPHABET, max_batch=8)
+    detect_calls = []
+    inner = service._pipeline._detect_tables
+    service._pipeline._detect_tables = lambda pages: (detect_calls.append(int(pages.shape[0])), inner(pages))[1]
+    service._gate.clear()
+    futs = [service.submit(v) for v in variants]
+    time.sleep(0.2)
+    service._gate.set()
+    got = ["\n".join(str(l) for l in f.result(timeout=600) if l is not None) for f in futs]
+    want_texts = [engine_text(default_engine, v) for v in variants]
+    check(service.batch_sizes == [8] and detect_calls == [8], f"serve: one batch of 8, one detection dispatch ({service.batch_sizes}, {detect_calls})")
+    check(got == want_texts, f"serve: the service reads what the engine reads ({got} / {want_texts})")
+    report["service_convctc"] = {"batch_sizes": service.batch_sizes, "detect_calls": detect_calls, "equals_engine": got == want_texts}
+
+    # The CRNN behind a server with the service: eight concurrent POSTs, held
+    # at the gate until all are queued, so that they make one batch. The GRU
+    # kernel runs on the service's worker thread; its input there is captured
+    # and the kernel held against the plain version on it. A recognizer with
+    # random weights decodes padding frames too, and a bidirectional GRU
+    # carries them into every frame: its text depends on the batch's padded
+    # width, so the engine (one page a batch) is the yardstick for the lines
+    # only, and the texts are held against the same batch with the plain GRU.
+    crnn_service = BatchingOcrService(crnn_engine, det, rec, DEFAULT_ALPHABET, max_batch=8, max_wait_ms=50.0)
+    worker = crnn_service._thread.name
+    worker_inputs = []
+    hook = rec.net.gru1.register_forward_hook(
+        lambda m, inp, out: worker_inputs.append(inp[0].detach()) if threading.current_thread().name == worker else None
+    )
+    bodies = [encode_png(v) for v in variants]
+    server = serve(crnn_engine, port=0, service=crnn_service)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def served_texts():
+        docs = [None] * len(bodies)
+
+        def post(i):
+            docs[i] = json.loads(http(base, "/ocr", bodies[i]))
+
+        crnn_service._gate.clear()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        crnn_service._gate.set()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads), "serve: every request was answered")
+        return [ocr_text(d) if d else "" for d in docs]
+
+    try:
+        reset_gru_counts()
+        served = served_texts()
+        torch.cuda.synchronize()
+        by_thread = dict(gru.bigru_sequence.launches_by_thread)
+        worker_launches = by_thread.get(worker, 0) + gru.gru_sequence.launches_by_thread.get(worker, 0)
+        rec.net.plain_gru = True
+        served_plain = served_texts()
+        rec.net.plain_gru = False
+    finally:
+        server.shutdown()
+        server.server_close()
+        hook.remove()
+    check(worker_launches >= 2, f"serve: the GRU kernel was launched on the service's worker thread ({by_thread})")
+    check(set(by_thread) == {worker}, f"serve: with the service every launch is the worker's ({by_thread})")
+    check(crnn_service.batch_sizes == [8, 8], f"serve: the eight requests made one batch ({crnn_service.batch_sizes})")
+    want_crnn = [engine_text(crnn_engine, decode_image(b)) for b in bodies]
+    same_lines = [len(a.splitlines()) for a in served] == [len(b.splitlines()) for b in want_crnn]
+    check(same_lines, f"serve: the CRNN service finds the engine's lines ({served} / {want_crnn})")
+    check(close_texts(served, served_plain), f"serve: kernel and plain GRU read close texts through the service ({served} / {served_plain})")
+    check(bool(worker_inputs), "serve: the worker's GRU input was captured")
+    ops = bigru_operands(rec.net.gru1, worker_inputs[0])
+    kernel_out = gru.bigru_sequence(*ops)
+    worker_err = float((kernel_out - gru.bigru_sequence_reference(*ops)).abs().max())
+    check(worker_err <= GRU_ATOL, f"serve: the kernel on the worker's GRU input vs plain {worker_err} <= {GRU_ATOL}")
+    report["service_crnn"] = {
+        "batch_sizes": crnn_service.batch_sizes,
+        "gru_launches_by_thread": by_thread,
+        "worker_gru_input_shape": list(worker_inputs[0].shape),
+        "kernel_vs_plain_on_worker_input": worker_err,
+        "lines_equal_engine": same_lines,
+        "texts_equal_engine": sum(a == b for a, b in zip(served, want_crnn)),
+        "texts_equal_plain_gru": sum(a == b for a, b in zip(served, served_plain)),
+    }
+
+    # The CRNN engine run by the server's handler threads themselves.
+    server = serve(crnn_engine, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    handler_texts = [None] * 4
+
+    def post_text(i):
+        handler_texts[i] = http(base, "/ocr/text", bodies[i]).decode()
+
+    try:
+        threads = [threading.Thread(target=post_text, args=(i,)) for i in range(4)]
+        reset_gru_counts()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        by_thread = dict(gru.bigru_sequence.launches_by_thread)
+    finally:
+        server.shutdown()
+        server.server_close()
+    handler_launches = sum(by_thread.values())
+    check(handler_launches >= 8 and "MainThread" not in by_thread, f"serve: handler threads launched the GRU kernel ({by_thread})")
+    check(close_texts(handler_texts, want_crnn[:4]), f"serve: handler threads read the engine's lines ({handler_texts})")
+    report["handlers_crnn"] = {"gru_launches_by_thread": by_thread, "threads": len(by_thread)}
+    return report, {"serve_worker": worker_launches, "serve_handlers": handler_launches}, worker_err
+
+
+def cli_phase(default_engine, det, conv):
+    """``python -m ocrs_tpu_torch.cli`` in subprocesses, all started
+    together, on the text page written with encode_png: --json on the card
+    by default, --beam, --png with the maps and line images, and --device
+    cpu. Returns the report."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ocrs_tpu_torch.engine import OcrEngine, OcrEngineParams
+    from ocrs_tpu_torch.png import decode_image, read_png, write_png
+    from ocrs_tpu_torch.preprocess import DimOrder, ImageSource
+    from ocrs_tpu_torch.recognition import BeamSearch
+
+    (REPO / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=REPO / "build"))
+    try:
+        page = work / "text.png"
+        write_png(page, text_page())
+        rgb = decode_image(page.read_bytes())
+
+        def engine_text(eng):
+            return eng.get_text(eng.prepare_input(ImageSource.from_tensor(rgb, DimOrder.HWC)))
+
+        want = engine_text(default_engine)
+        want_beam = engine_text(
+            OcrEngine(OcrEngineParams(detection_model=det, recognition_model=conv, decode_method=BeamSearch(100)), device="cuda")
+        )
+        runs = {
+            "json": ["--json"],
+            "beam": ["--beam"],
+            "png_maps": ["--png", "-o", "out.png", "--text-map", "--text-mask", "--text-line-images"],
+            "device_cpu": ["--device", "cpu"],
+        }
+        env = {**os.environ, "PYTHONPATH": str(REPO)}
+        t0 = time.perf_counter()
+        procs = {}
+        for name, flags in runs.items():
+            cwd = work / name
+            cwd.mkdir()
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "ocrs_tpu_torch.cli", str(page), *flags],
+                cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+        out = {}
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"cli {name}: exit code {proc.returncode} ({stderr[-2000:]})")
+            out[name] = stdout
+        seconds = time.perf_counter() - t0
+        try:
+            text = ocr_text(json.loads(out["json"]))
+        except (ValueError, KeyError, IndexError):
+            text = None
+        check(text == want, f"cli --json reads what the engine reads on the card ({text!r} / {want!r})")
+        check(out["beam"].rstrip("\n") == want_beam, f"cli --beam reads what a beam engine reads ({out['beam']!r} / {want_beam!r})")
+        check(out["device_cpu"].rstrip("\n") == want, f"cli --device cpu reads what the card reads ({out['device_cpu']!r})")
+        pm = work / "png_maps"
+        annotated = read_png(pm / "out.png")
+        check(annotated.shape == rgb.shape and bool((annotated != rgb).any()), f"cli --png: an annotated page of the page's shape ({annotated.shape})")
+        maps = {name: read_png(pm / name).shape for name in ("text-map.png", "text-mask.png")}
+        check(all(sh == (*rgb.shape[:2], 1) for sh in maps.values()), f"cli --text-map/--text-mask: pages of the page's size ({maps})")
+        line_images = sorted((pm / "lines").glob("line-*.png"))
+        check(len(line_images) == len(want.splitlines()) and all(read_png(p).shape[0] == 64 for p in line_images), f"cli --text-line-images ({line_images})")
+        return {
+            "runs": {name: " ".join(flags) for name, flags in runs.items()},
+            "seconds_all_four_together": seconds,
+            "json_text": text,
+            "json_equals_engine": text == want,
+            "beam_equals_engine": out["beam"].rstrip("\n") == want_beam,
+            "cpu_equals_card": out["device_cpu"].rstrip("\n") == want,
+            "annotated_shape": list(annotated.shape),
+            "maps": {k: list(v) for k, v in maps.items()},
+            "line_images": len(line_images),
+        }
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def png_with_filter(img, ftype):
+    """PNG bytes of `img` (H, W, C uint8) with every row's filter type set to
+    `ftype` over the raw rows: the decoder's work for that filter (the
+    decoded pixels are `img` only for type 0)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, c = img.shape
+    rows = np.concatenate([np.full((h, 1), ftype, np.uint8), img.reshape(h, w * c)], axis=1)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    colour = {1: 0, 3: 2, 4: 6}[c]
+    return (
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + chunk(b"IEND", b"")
+    )
+
+
+def png_times(page):
+    """Host milliseconds of decode_png per filter type, and of encode_png, on
+    one RGB page."""
+    import numpy as np
+
+    from ocrs_tpu_torch.png import decode_png, encode_png
+
+    rgb = np.repeat(page[..., None], 3, axis=2)
+    report = {"hw": list(rgb.shape)}
+    for ftype, name in enumerate(("none", "sub", "up", "average", "paeth")):
+        data = png_with_filter(rgb, ftype)
+        reps = 3 if ftype < 3 else 1
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = decode_png(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(out.shape == rgb.shape, f"png: decode_png of the {name}-filtered page has its shape")
+        report[f"decode_{name}_ms"] = statistics.median(times)
+    t0 = time.perf_counter()
+    encoded = encode_png(rgb)
+    report["encode_ms"] = (time.perf_counter() - t0) * 1e3
+    report["encoded_bytes"] = len(encoded)
+    check(np.array_equal(decode_png(encoded), rgb), "png: encode_png round-trips the page")
+    return report
+
+
+def serve_times(det, conv, default_engine):
+    """POST /ocr of the text page beside get_text on the same pixels; the
+    batching service under SERVE_CLIENTS client threads of A4 pages at 150
+    dpi, against the same requests one after the other to a server without
+    it; the PNG codec on one such page."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ocrs_tpu_torch.engine import DEFAULT_ALPHABET
+    from ocrs_tpu_torch.png import decode_image, encode_png
+    from ocrs_tpu_torch.preprocess import DimOrder, ImageSource
+    from ocrs_tpu_torch.serve import BatchingOcrService, serve
+
+    report = {}
+    body = encode_png(text_page())
+    text_input = default_engine.prepare_input(ImageSource.from_tensor(decode_image(body), DimOrder.HWC))
+    server = serve(default_engine, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        http(base, "/ocr", body)
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            http(base, "/ocr", body)
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        server.shutdown()
+        server.server_close()
+    report["post_ocr_ms"] = statistics.median(times)
+    report["get_text_ms"] = wall_ms(lambda: default_engine.get_text(text_input), reps=20)
+    report["post_ocr_minus_get_text_ms"] = report["post_ocr_ms"] - report["get_text_ms"]
+
+    pages = [
+        full_page(seed, hw=A4_150_HW, scale=A4_150_SCALE, pitch=A4_150_PITCH, left=A4_150_LEFT)
+        for seed in range(SERVE_CLIENTS)
+    ]
+    bodies = [encode_png(p) for p, _ in pages]
+    drawn = [texts for _, texts in pages]
+    n_requests = SERVE_CLIENTS * SERVE_REQUESTS_EACH
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=REPO / "build"))
+    paths = []
+    for i, b in enumerate(bodies):
+        paths.append(work / f"page-{i}.png")
+        paths[-1].write_bytes(b)
+
+    def load(base, clients):
+        """`clients` threads of a client process of their own (LOAD_CLIENT),
+        each sending its share of the requests one after the other ->
+        (seconds, latencies in ms, texts by page)."""
+        out = subprocess.run(
+            [sys.executable, "-c", LOAD_CLIENT, base, str(clients), str(n_requests // clients), *map(str, paths)],
+            capture_output=True, text=True, timeout=900,
+        )
+        check(out.returncode == 0, f"times: the load client ran ({out.stderr[-2000:]})")
+        res = json.loads(out.stdout or '{"seconds": 1, "latencies_ms": [], "texts": {}, "errors": ["no output"]}')
+        check(not res["errors"], f"times: every request was answered with 200 ({res['errors'][:5]})")
+        return res["seconds"], res["latencies_ms"], {int(k): v for k, v in res["texts"].items()}
+
+    def summary(seconds, latencies):
+        q = np.percentile(latencies, [50, 99])
+        return {
+            "requests": len(latencies),
+            "seconds": seconds,
+            "requests_per_s": len(latencies) / seconds,
+            "p50_ms": float(q[0]),
+            "p99_ms": float(q[1]),
+        }
+
+    service = BatchingOcrService(default_engine, det, conv, DEFAULT_ALPHABET, max_batch=8, max_wait_ms=15.0)
+    server = serve(default_engine, port=0, service=service)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        load(base, SERVE_CLIENTS)  # warm-up: the batch shapes' first runs
+        service.batch_sizes.clear()
+        service.batch_ms.clear()
+        seconds, latencies, texts = load(base, SERVE_CLIENTS)
+        torch.cuda.synchronize()
+    finally:
+        server.shutdown()
+        server.server_close()
+    sizes = service.batch_sizes
+    report["service"] = {
+        "page_hw": list(A4_150_HW),
+        "clients": SERVE_CLIENTS,
+        "requests_each": SERVE_REQUESTS_EACH,
+        "max_batch": 8,
+        "max_wait_ms": 15.0,
+        **summary(seconds, latencies),
+        "batch_size_histogram": {str(b): sizes.count(b) for b in sorted(set(sizes))},
+        "batch_ms_median_by_size": {
+            str(b): statistics.median(ms for n, ms in zip(sizes, service.batch_ms) if n == b) for b in sorted(set(sizes))
+        },
+        "lines_read_as_drawn": sum(line in drawn[i] for i, t in texts.items() for line in t.splitlines()),
+        "lines_drawn": sum(len(drawn[i]) for i in texts),
+    }
+    lines_found = sum(len(t.splitlines()) for t in texts.values())
+    check(len(latencies) == n_requests, f"times: the service answered every request ({len(latencies)} of {n_requests})")
+    check(lines_found >= 0.95 * report["service"]["lines_drawn"], f"times: the service finds the lines drawn ({lines_found})")
+
+    server = serve(default_engine, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        http(base, "/ocr/text", bodies[0])  # warm-up
+        seconds, latencies, seq_texts = load(base, 1)
+    finally:
+        server.shutdown()
+        server.server_close()
+    report["sequential_without_service"] = {**summary(seconds, latencies)}
+    shutil.rmtree(work, ignore_errors=True)
+    report["sequential_without_service"]["lines_read_as_drawn"] = sum(
+        line in drawn[i] for i, t in seq_texts.items() for line in t.splitlines()
+    )
+    report["service_texts_equal_sequential"] = sum(texts.get(i) == seq_texts.get(i) for i in range(len(bodies)))
+    report["png_a4_150dpi"] = png_times(pages[0][0])
+    return report
 
 
 def main() -> int:
@@ -956,7 +1507,15 @@ def main() -> int:
         }
     )
 
-    # 10. Times -----------------------------------------------------------------
+    # 10. Serving: the HTTP server, the batching service, the CRNN on the
+    # service's worker and on the handler threads -----------------------------
+    serve_report, serve_launches, worker_err = serve_phase(det, conv, rec, default_engine, engine)
+    emit({"phase": "serve", **serve_report})
+
+    # 11. The CLI in subprocesses ------------------------------------------------
+    emit({"phase": "cli", **cli_phase(default_engine, det, conv)})
+
+    # 12. Times -----------------------------------------------------------------
     one_dir_ms = cuda_ms(lambda: gru.gru_sequence(*args), reps=20)
     kernel_ms = cuda_ms(lambda: gru.bigru_sequence(*bi_args, out=bi_out.transpose(0, 1)), reps=20)
     # The dependent chain without arithmetic: the same launch without the
@@ -1141,6 +1700,8 @@ def main() -> int:
         "stages_ms": fenced_stages(crnn_pipe, bench_group),
     }
 
+    serve_ms = serve_times(det, conv, default_engine)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1180,6 +1741,7 @@ def main() -> int:
             f"bound_n{PIPE_N}_flops": big_flops,
             f"bound_n{PIPE_N}_bytes": big_nbytes,
             "pipeline": pipe_times,
+            "serve": serve_ms,
         }
     )
 
@@ -1194,9 +1756,12 @@ def main() -> int:
                     "route": "cuda",
                     "source": "ocrs_tpu_torch/csrc/gru_seq.cu",
                     "replaces": "ocrs_tpu/ops/gru_pallas.py:41",
-                    "launches": launches + pipe_launches,
-                    "launches_by_path": {"engine": launches, "pipeline_crnn": pipe_launches},
-                    "max_abs_err": max_err,
+                    "launches": launches + pipe_launches + sum(serve_launches.values()),
+                    "launches_by_path": {"engine": launches, "pipeline_crnn": pipe_launches, **serve_launches},
+                    "launch_sites": "the caller's thread (engine, pipeline), the batching service's worker "
+                    "thread (serve_worker), the HTTP server's handler threads (serve_handlers)",
+                    "max_abs_err": max(max_err, worker_err),
+                    "max_abs_err_on_serve_worker_input": worker_err,
                     "shape": {"T": GRU_T, "N": GRU_N, "H": GRU_H},
                     "ms": kernel_ms,
                     "plain_ms": plain_ms,

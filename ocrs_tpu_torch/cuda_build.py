@@ -6,6 +6,13 @@ land in ``build/torch_kernels/`` beside the package, named by a digest of the
 source and the flags, so an edited source builds anew and an unchanged one is
 reused. Nothing is built when a module is imported: the first launch (or
 :func:`build`) does it.
+
+:func:`build` and :func:`load` hold one lock, so threads that first reach a
+kernel together (a server's handler threads, a batching worker) build it
+once: the second waits for the first and finds the library built. Each
+build writes a temporary file named by process and thread and moves it into
+place, so processes sharing the build directory never load a half-written
+library.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -32,6 +40,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[tuple, ctypes.CDLL] = {}
+_lock = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -57,31 +66,36 @@ def build(names=None, extra: tuple[str, ...] = ()) -> dict[str, dict]:
     them is a file of its own. Returns
     ``{name: {"seconds": s, "log": ptxas output}}`` for the ones built."""
     names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name, extra)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(_PKG / SOURCES[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        procs[name] = (proc, tmp, out, time.perf_counter())
-    built = {}
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
-        os.replace(tmp, out)
-        built[name] = {"seconds": time.perf_counter() - t0, "log": log}
-    return built
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in names:
+            out = library_path(name, extra)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(_PKG / SOURCES[name])]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            procs[name] = (proc, tmp, out, time.perf_counter())
+        built = {}
+        for name, (proc, tmp, out, t0) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+            os.replace(tmp, out)
+            built[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        return built
 
 
 def load(name: str, extra: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The kernel library `name` (with the `extra` flags), built first if needed."""
     key = (name, tuple(extra))
     lib = _loaded.get(key)
-    if lib is None:
-        build([name], extra)
-        lib = _loaded[key] = ctypes.CDLL(str(library_path(name, extra)))
-    return lib
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            build([name], extra)
+            lib = _loaded[key] = ctypes.CDLL(str(library_path(name, extra)))
+        return lib

@@ -34,6 +34,7 @@ from .recognition import (
     single_bucket,
 )
 from .text_items import TextChar, TextLine
+from .utils.tracing import StageTimer
 
 #: Characters the recognition model was trained on; label i (>=1) maps to
 #: DEFAULT_ALPHABET[i-1], label 0 is the CTC blank (lib.rs:33-34).
@@ -258,10 +259,18 @@ class OcrEngine:
         return TextDetectorParams().text_threshold
 
     def get_text(self, input: OcrInput) -> str:
-        """Full pipeline: all text in the image as one string (lib.rs:288-300)."""
-        words = self.detect_words(input)
-        lines = self.find_text_lines(input, words)
-        recognized = self.recognize_text(input, lines)
+        """Full pipeline: all text in the image as one string (lib.rs:288-300).
+
+        With ``debug=True`` prints each stage's wall time, fenced on the
+        engine's device so that it holds the stage's device work, and a
+        summary (the reference's per-op timing dump, detection.rs:177-182)."""
+        timer = StageTimer(debug=self._debug, fence_device=self.device if self._debug else None)
+        with timer.stage("detect_words"):
+            words = self.detect_words(input)
+        with timer.stage("find_text_lines"):
+            lines = self.find_text_lines(input, words)
+        with timer.stage("recognize_text"):
+            recognized = self.recognize_text(input, lines)
         if self._debug:
-            print(f"[ocrs_tpu_torch] {len(words)} words, {len(lines)} lines")
+            print(f"[ocrs_tpu_torch] {len(words)} words, {len(lines)} lines; " + timer.summary())
         return "\n".join(str(line) for line in recognized if line is not None)

@@ -1,8 +1,12 @@
 """Model weight files and the JAX-to-PyTorch layout map.
 
-Port of ``ocrs_tpu.models.weights`` in numpy (no download branch): a weight
-file is a flat ``.npz`` of the JAX parameter pytree, keys joined with ``/``,
-plus a ``__meta__`` record of UTF-8 JSON.
+Port of ``ocrs_tpu.models.weights`` in numpy: a weight file is a flat
+``.npz`` of the JAX parameter pytree, keys joined with ``/``, plus a
+``__meta__`` record of UTF-8 JSON. :func:`fetch_model` resolves a model
+source as the JAX package does: local paths pass through, and an
+``http(s)://`` URL is downloaded once into the per-user cache
+(``~/.cache/ocrs-tpu``, or ``$OCRS_TPU_CACHE``), keyed by its file name
+(upstream ocrs-cli/src/models.rs:17-64).
 
 :func:`params_from_jax` carries JAX-layout parameters across to the port's
 ``nn.Module`` state dicts:
@@ -22,6 +26,9 @@ The map goes by key as well as by rank: only a leaf named ``w`` is a kernel.
 from __future__ import annotations
 
 import json
+import os
+import sys
+import urllib.request
 from pathlib import Path
 from typing import Any, Mapping
 
@@ -30,6 +37,33 @@ import torch
 
 _SEP = "/"
 _META_KEY = "__meta__"
+
+
+def cache_dir() -> Path:
+    """Per-user model cache (models.rs:17-42)."""
+    root = os.environ.get("OCRS_TPU_CACHE", os.path.join(Path.home(), ".cache", "ocrs-tpu"))
+    p = Path(root)
+    p.mkdir(parents=True, exist_ok=True)
+    return p
+
+
+def fetch_model(source: str | Path) -> Path:
+    """Resolve a model source to a local file.
+
+    Local paths pass through; ``http(s)://`` URLs download once into the
+    cache, keyed by filename, and are read from there when already present
+    (models.rs:44-64)."""
+    source = str(source)
+    if not source.startswith(("http://", "https://")):
+        return Path(source)
+    target = cache_dir() / source.rsplit("/", 1)[-1]
+    if target.exists():
+        return target
+    print(f"Downloading {source}...", file=sys.stderr)
+    tmp = target.with_suffix(target.suffix + ".part")
+    urllib.request.urlretrieve(source, tmp)
+    tmp.rename(target)
+    return target
 
 
 def _unflatten(flat: Mapping[str, np.ndarray]) -> Any:
@@ -104,17 +138,17 @@ def params_from_jax(params: Any) -> dict[str, torch.Tensor]:
 
 
 def load_detection_model(source: str | Path):
-    """Construct a DetectionModel from a weight file (input size from meta)."""
+    """Construct a DetectionModel from a weight file or URL (input size from meta)."""
     from .detection_net import DetectionModel
 
-    params, meta = load_params(source)
+    params, meta = load_params(fetch_model(source))
     return DetectionModel(params, tuple(meta.get("input_hw", (800, 608))))
 
 
 def load_recognition_model(source: str | Path):
-    """Construct a RecognitionModel from a weight file, honouring the
+    """Construct a RecognitionModel from a weight file or URL, honouring the
     architecture recorded in the file's metadata ("arch")."""
     from .recognition_net import RecognitionModel
 
-    params, meta = load_params(source)
+    params, meta = load_params(fetch_model(source))
     return RecognitionModel(params, arch=meta.get("arch", "crnn"))

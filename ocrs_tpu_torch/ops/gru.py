@@ -6,7 +6,9 @@ runs both directions of a bidirectional GRU in one launch, reading the
 projections through their strides and writing the two halves of one output
 tensor. On CUDA tensors both launch ``csrc/gru_seq.cu`` (built with ``nvcc``
 at first use, see :mod:`ocrs_tpu_torch.cuda_build`) and count the launch in
-``gru_sequence.launches`` / ``bigru_sequence.launches``; on CPU tensors they
+``gru_sequence.launches`` / ``bigru_sequence.launches``, and by the name of
+the launching thread in ``.launches_by_thread`` (a server launches from its
+handler threads and its batching worker); on CPU tensors they
 run :func:`gru_sequence_reference` / :func:`bigru_sequence_reference`, the
 plain PyTorch loops with the same math. There is no fallback from CUDA to a
 plain version: the kernel runs or the call raises.
@@ -24,12 +26,15 @@ the recurrence in the kernel. The bidirectional layer is
 from __future__ import annotations
 
 import ctypes
+import threading
+from collections import Counter
 
 import torch
 
 from .. import cuda_build
 
 _LIB_NAME = "gru_seq"
+_count_lock = threading.Lock()
 
 #: Blocks per cluster: 8 is the largest size every Hopper launch may ask for.
 MAX_CLUSTER = 8
@@ -109,6 +114,14 @@ def _launch(dirs, t_len: int, n: int, hidden: int, mode: int = 0) -> None:
         raise RuntimeError(f"gru_seq kernel launch failed: CUDA error {err} (plan {plan})")
 
 
+def _count(wrapper) -> None:
+    """One launch of `wrapper`'s kernel, in its total and under the name of
+    the calling thread."""
+    with _count_lock:
+        wrapper.launches += 1
+        wrapper.launches_by_thread[threading.current_thread().name] += 1
+
+
 def _check(xr, xz, xn, wh, bh) -> None:
     """Validate the operands of :func:`gru_sequence`."""
     if xr.dim() != 3:
@@ -177,12 +190,13 @@ def gru_sequence(
     if out.numel() == 0:
         return out
     _launch([(xr, xz, xn, wh, bh, out, reverse)], t_len, n, hidden)
-    gru_sequence.launches += 1
+    _count(gru_sequence)
     return out
 
 
 #: Number of kernel launches (CUDA calls only; CPU calls run the plain version).
 gru_sequence.launches = 0
+gru_sequence.launches_by_thread = Counter()
 
 
 def _check_bigru(xp_fwd, xp_bwd, wh_fwd, bh_fwd, wh_bwd, bh_bwd, out) -> None:
@@ -274,12 +288,13 @@ def bigru_sequence(
         )
     ]
     _launch(dirs, t_len, n, hidden, mode=timing_mode)
-    bigru_sequence.launches += 1
+    _count(bigru_sequence)
     return out
 
 
 #: Number of kernel launches (CUDA calls only; CPU calls run the plain version).
 bigru_sequence.launches = 0
+bigru_sequence.launches_by_thread = Counter()
 
 
 def gru_apply(params: dict, x: torch.Tensor, reverse: bool = False, plain: bool = False) -> torch.Tensor:

@@ -344,3 +344,87 @@ def test_crnn_pipeline_on_card_launches_the_kernel_twice_per_batch():
     n_lines = sum(len(r.lines) for r in results)
     assert n_lines == 7
     assert gru.bigru_sequence.launches == before + 2 * -(-n_lines // 4)
+
+
+def _serve_models():
+    from pathlib import Path
+
+    from ocrs_tpu_torch.models.weights import load_detection_model, load_recognition_model
+
+    weights = Path(__file__).resolve().parent.parent / "weights"
+    return load_detection_model(weights / "text-detection.npz"), load_recognition_model(weights / "text-recognition.npz")
+
+
+def _post(base, path, data):
+    import urllib.request
+
+    with urllib.request.urlopen(urllib.request.Request(base + path, data=data, method="POST"), timeout=300) as r:
+        assert r.status == 200
+        return r.read()
+
+
+@pytest.mark.cuda
+def test_server_on_card_answers_what_the_engine_reads():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    import urllib.request
+
+    import ocrs_tpu_torch as ot
+    from ocrs_tpu_torch.png import decode_image, encode_png
+    from ocrs_tpu_torch.serve import serve
+
+    det, rec = _serve_models()
+    engine = ot.OcrEngine(ot.OcrEngineParams(detection_model=det, recognition_model=rec))
+    assert engine.device.type == "cuda"
+    pages, lines = _text_pages()
+    body = encode_png(pages[0])
+    want = engine.get_text(engine.prepare_input(ot.ImageSource.from_tensor(decode_image(body), ot.DimOrder.HWC)))
+    assert want.splitlines() == lines
+    server = serve(engine, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        assert torch.cuda.get_device_name(0) in health["devices"][0]
+        doc = json.loads(_post(base, "/ocr", body))
+        assert "\n".join(l["text"] for l in doc["paragraphs"][0]["lines"]) == want
+        assert _post(base, "/ocr/text", body).decode() == want
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["convctc", "crnn"])
+def test_batching_service_on_card_makes_one_batch(arch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import time
+
+    import ocrs_tpu_torch as ot
+    from ocrs_tpu_torch.models.recognition_net import RecognitionModel
+    from ocrs_tpu_torch.serve import BatchingOcrService
+
+    det, rec = _serve_models()
+    if arch == "crnn":
+        rec = RecognitionModel.create(seed=0, arch="crnn")
+    engine = ot.OcrEngine(ot.OcrEngineParams(detection_model=det, recognition_model=rec))
+    service = BatchingOcrService(engine, det, rec, ot.DEFAULT_ALPHABET, max_batch=4)
+    assert service._pipeline.device == engine.device
+    pages, _ = _text_pages()
+    service._gate.clear()
+    gru.bigru_sequence.launches_by_thread.clear()
+    futs = [service.submit(p[..., None]) for p in pages]
+    time.sleep(0.2)
+    service._gate.set()
+    got = ["\n".join(str(l) for l in f.result(timeout=300) if l is not None) for f in futs]
+    assert service.batch_sizes == [4]
+    worker = gru.bigru_sequence.launches_by_thread.get(service._thread.name, 0)
+    want = [engine.get_text(engine.prepare_input(ot.ImageSource.from_tensor(p[..., None], ot.DimOrder.HWC))) for p in pages]
+    if arch == "convctc":
+        assert got == want and worker == 0
+    else:
+        # A random CRNN's text depends on the batch's padded width: the lines
+        # are the engine's, and the kernel ran on the worker thread.
+        assert [len(t.splitlines()) for t in got] == [len(t.splitlines()) for t in want] and worker >= 2

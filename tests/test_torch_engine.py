@@ -33,6 +33,10 @@ import ocrs_tpu_torch as ot
 from ocrs_tpu_torch.models.recognition_net import RecognitionModel
 from ocrs_tpu_torch.models.weights import load_detection_model, load_recognition_model
 from ocrs_tpu_torch.ops import gru
+from test_torch_support import jax_native  # noqa: F401 - a fixture, used by pytestmark
+
+# Held against JAX routes that take the JAX package's native library.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 REPO = Path(__file__).resolve().parent.parent
 DET_WEIGHTS = REPO / "weights" / "text-detection.npz"

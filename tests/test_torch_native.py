@@ -20,6 +20,10 @@ from ocrs_tpu_torch.ops import ctc, rects
 from ocrs_tpu_torch.ops.resize import resize_bilinear
 from ocrs_tpu_torch.ops.warp import extract_line_batch_packed, extract_line_batch_rotated
 from ocrs_tpu_torch.preprocess import BLACK_VALUE
+from test_torch_support import jax_native  # noqa: F401 - a fixture, used by pytestmark
+
+# Held against JAX routes that take the JAX package's native library.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 U8_ATOL = 0.75
 

@@ -35,6 +35,10 @@ from ocrs_tpu_torch.layout import is_vertical_line, merge_vertical_chains
 from ocrs_tpu_torch.models.weights import load_detection_model, load_recognition_model
 from ocrs_tpu_torch.ops import ctc as tctc
 from ocrs_tpu_torch.ops.warp import extract_line_batch_rotated
+from test_torch_support import jax_native  # noqa: F401 - a fixture, used by pytestmark
+
+# Held against JAX routes that take the JAX package's native library.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 REPO = Path(__file__).resolve().parent.parent
 DET_WEIGHTS = REPO / "weights" / "text-detection.npz"

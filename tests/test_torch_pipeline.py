@@ -30,6 +30,10 @@ from ocrs_tpu_torch.models.fakes import FakeDetectionModel, FakeRecognitionModel
 from ocrs_tpu_torch.models.weights import load_detection_model, load_recognition_model
 from ocrs_tpu_torch.parallel import pipeline as tpipe
 from ocrs_tpu_torch.utils.tracing import StageTimer
+from test_torch_support import jax_native  # noqa: F401 - a fixture, used by pytestmark
+
+# Held against JAX routes that take the JAX package's native library.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 REPO = Path(__file__).resolve().parent.parent
 ALPHABET = ot.DEFAULT_ALPHABET[:63]

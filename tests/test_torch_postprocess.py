@@ -18,6 +18,10 @@ from ocrs_tpu_torch import layout as tlayout
 from ocrs_tpu_torch import recognition as trec
 from ocrs_tpu_torch.ops import ctc as tctc
 from ocrs_tpu_torch.ops import warp as twarp
+from test_torch_support import jax_native  # noqa: F401 - a fixture, used by pytestmark
+
+# Held against JAX routes that take the JAX package's native library.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 # Same float32 formulas on both sides, but XLA fuses the sample-position
 # arithmetic into FMAs, so a page coordinate can differ by one float32 ulp

@@ -16,6 +16,10 @@ from ocrs_tpu.ops import connected_components as jcc
 from ocrs_tpu.ops import rects as jr
 from ocrs_tpu_torch.geometry import RotatedRect
 from ocrs_tpu_torch.ops import rects as tr
+from test_torch_support import jax_native  # noqa: F401 - a fixture, used by pytestmark
+
+# Held against JAX routes that take the JAX package's native library.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 # Centres and extents in pixels, axes as unit vectors: float32 projections of
 # coordinates below 256. Measured max |diff| 1.2e-5.

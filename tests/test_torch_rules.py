@@ -160,3 +160,17 @@ def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
     assert out.returncode != 0
     assert out.stdout == ""
     assert "checkout" in out.stderr
+
+
+@pytest.mark.parametrize("module", ["cli", "serve", "output", "png"])
+def test_entry_point_modules_import_neither_jax_nor_pillow(module):
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module('ocrs_tpu_torch.{module}')\n"
+        "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ocrs_tpu', 'PIL')])\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_clean_env(), capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

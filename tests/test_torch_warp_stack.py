@@ -29,6 +29,10 @@ from ocrs_tpu_torch.models import fakes
 from ocrs_tpu_torch.models.protocol import Model
 from ocrs_tpu_torch.ops import ctc, rects, warp
 from ocrs_tpu_torch.utils.tracing import StageTimer, fence, trace
+from test_torch_support import jax_native  # noqa: F401 - a fixture, used by pytestmark
+
+# Held against JAX routes that take the JAX package's native library.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 F32_ATOL = 1e-5
 OUT_H, OUT_W = 16, 96
