@@ -98,6 +98,23 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
      (requests per second, p50 and p99 latency, the batch sizes), against
      the same requests one after the other to a server without the service;
      ``decode_png`` per row filter and ``encode_png`` on one such page.
+  13. train: training on the card (``ocrs_tpu_torch.train``). The GRU kernel
+     at hidden 384 and 512 (clusters of 16 blocks) against its plain
+     version, timed beside cuDNN's layer; the gradients of one CRNN loss
+     (hidden 192, batch 64 of pixel-face lines of width 768) through the
+     kernel route against the plain route, in float32 and bf16; then, each
+     on one fixed batch, the CRNN (``tools/train_models.py``'s chain at lr
+     1e-3), ConvCTC warm-started from the shipped weights at the same batch
+     and the U-Net warm-started from the shipped weights on 16 pixel-face
+     pages of 800 x 608 with their word boxes as the target: the loss is
+     finite and falls over 20 steps; ms a step (median of 10 after 3
+     warm-ups, fenced) and peak memory; two GRU launches a CRNN step
+     (counted from zero over the 20 steps). One BiGRU layer's forward and
+     backward at the training shape, kernel route (backward recomputed
+     through the plain loop) against the plain route and cuDNN's layer. A
+     checkpoint saved and restored into a fresh state steps as the state it
+     came from. Last, ``python -m ocrs_tpu_torch.train.demo`` (150 steps,
+     hidden 192) in-process: its loss curve and held-out decodes.
 
 Then it prints the kernels line, the card's name and power limit, and, as
 the last line, ``{"ok": true, "device": {...}}``. A failed check exits with
@@ -107,7 +124,9 @@ on standard output.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import statistics
@@ -976,6 +995,307 @@ def serve_times(det, conv, default_engine):
     return report
 
 
+# The train phase: the recognizers' and the detector's training steps at
+# full width. CRNN and ConvCTC: batch 64 of pixel-face lines of width 768
+# (192 frames), the CRNN at hidden 192 (tools/train_models.py's defaults);
+# the U-Net: 16 pages of 800 x 608.
+TRAIN_BATCH, TRAIN_WIDTH, TRAIN_HIDDEN, TRAIN_LR = 64, 768, 192, 1e-3
+DET_BATCH = 16
+# Steps on one fixed batch over which the loss must fall; then 3 warm-up
+# steps and 10 timed ones.
+TRAIN_FALL_STEPS, TRAIN_WARMUP, TRAIN_TIMED = 20, 3, 10
+# Gradients of one CRNN loss, kernel route against the plain route, by
+# relative norm of the difference per parameter. Float32 activations: the
+# routes differ only in the recurrence's f32 rounding (~1e-6), carried
+# through the backward. bf16 activations (as trained): a GRU output whose
+# bf16 rounding flips moves the layers after it by a bf16 ulp (2**-8).
+TRAIN_GRAD_RTOL_F32, TRAIN_GRAD_RTOL_BF16 = 1e-3, 5e-2
+# Hidden sizes above 256: the kernel's non-portable clusters of 16 blocks.
+LARGE_HIDDEN = (384, 512)
+# The held-out decodes of a short demo run (python -m ocrs_tpu_torch.train.demo).
+DEMO_ARGS = ["--steps", "150", "--hidden", "192"]
+
+
+def train_pages(rng, n, hw=(800, 608)):
+    """`n` pages of pixel-face lines (uint8, dark on light) and their word
+    boxes as a {0, 1} target mask, [n, 1, H, W] each."""
+    import numpy as np
+
+    from ocrs_tpu_torch.engine import DEFAULT_ALPHABET
+    from ocrs_tpu_torch.train import pixelfont
+    from ocrs_tpu_torch.train.demo import random_text
+
+    pages = np.full((n, 1, *hw), 255, np.uint8)
+    targets = np.zeros((n, 1, *hw), np.uint8)
+    for i in range(n):
+        y = int(rng.integers(20, 60))
+        while True:
+            scale = float(rng.uniform(2.0, 4.0))
+            mask, boxes = pixelfont.render_pixel_line(random_text(rng, DEFAULT_ALPHABET), scale, rng=rng)
+            h, w = mask.shape
+            x = int(rng.integers(10, 120))
+            if y + h > hw[0] - 20:
+                break
+            w = min(w, hw[1] - x)
+            pages[i, 0, y : y + h, x : x + w] = np.where(mask[:, :w] > 0, 0, 255)
+            for _, (t, l, b, r) in boxes:
+                t, l, b, r = int(t), int(l), int(np.ceil(b)), int(np.ceil(r))
+                targets[i, 0, y + t : y + b, x + l : min(x + r, hw[1])] = 1
+            y += h + int(rng.integers(int(0.5 * h), 2 * h))
+    return pages, targets
+
+
+def train_phase(dev):
+    """Returns (report, GRU launches of the training run, large-hidden kernel
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from ocrs_tpu_torch.models.nn import BiGRU
+    from ocrs_tpu_torch.models.weights import load_params
+    from ocrs_tpu_torch.ops import gru
+    from ocrs_tpu_torch.train import checkpoint, demo, optim, train
+
+    t_phase = time.perf_counter()
+    report = {}
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    # Kernel at hidden 384 and 512 against its plain version, and its times.
+    large = {}
+    for hidden in LARGE_HIDDEN:
+        xps = [torch.randn(GRU_N, GRU_T, 3 * hidden, device=dev, generator=g).transpose(0, 1) for _ in range(2)]
+        rec = []
+        for _ in range(2):
+            rec += [torch.randn(hidden, 3 * hidden, device=dev, generator=g) * (2.0 / hidden) ** 0.5,
+                    torch.randn(3 * hidden, device=dev, generator=g) * 0.1]
+        out = torch.full((GRU_N, GRU_T, 2 * hidden), float("nan"), device=dev)
+        gru.bigru_sequence(*xps, *rec, out=out.transpose(0, 1))
+        want = gru.bigru_sequence_reference(*xps, *rec)
+        torch.cuda.synchronize()
+        err = float((out.transpose(0, 1) - want).abs().max())
+        check(bool(torch.isfinite(out).all()) and err <= GRU_ATOL, f"GRU kernel at hidden {hidden}: max |err| {err} <= {GRU_ATOL}")
+        flops = 2 * 2.0 * GRU_N * hidden * 3 * hidden * GRU_T
+        nbytes = 2 * 4.0 * (4 * GRU_T * GRU_N * hidden + 3 * hidden * hidden + 3 * hidden)
+        by_ops, by_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        cudnn_gru = torch.nn.GRU(hidden, hidden, batch_first=True, bidirectional=True).to(dev)
+        x = torch.randn(GRU_N, GRU_T, hidden, device=dev, generator=g)
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode():
+            library_ms = cuda_ms(lambda: cudnn_gru(x), reps=10)
+        torch.backends.cudnn.allow_tf32 = True
+        large[hidden] = {
+            "shape": {"T": GRU_T, "N": GRU_N, "H": hidden},
+            "launch_plan": gru.launch_plan(GRU_N, hidden),
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: gru.bigru_sequence(*xps, *rec, out=out.transpose(0, 1)), reps=10),
+            "plain_ms": cuda_ms(lambda: gru.bigru_sequence_reference(*xps, *rec), reps=2, warmup=1),
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": library_ms,
+            "library_call": f"torch.nn.GRU({hidden}, {hidden}, bidirectional=True), input projections included",
+        }
+        del xps, rec, out, want
+    report["large_hidden"] = {str(h): v for h, v in large.items()}
+
+    rng = np.random.default_rng(6)
+    lines = demo.make_batch(rng, TRAIN_BATCH, TRAIN_WIDTH)
+    total = TRAIN_FALL_STEPS + TRAIN_WARMUP + TRAIN_TIMED
+
+    def recipe():
+        # tools/train_models.py's optimizer, its cosine decaying over twice
+        # the steps a model takes here: the checkpoint's extra step (after
+        # 36) still moves the weights by about 0.6 * lr.
+        schedule = optim.warmup_cosine_decay_schedule(
+            0.0, TRAIN_LR, warmup_steps=min(300, total // 2 + 1), decay_steps=2 * total
+        )
+        return optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(schedule, weight_decay=1e-4))
+
+    # Gradients of one CRNN loss through the kernel route and the plain route.
+    opt = recipe()
+    state = train.init_recognition_state(opt, n_classes=97, hidden=TRAIN_HIDDEN, seed=0, arch="crnn")
+    params = dict(state.model.net.named_parameters())
+    grad_report = {}
+    for name, dtype, bound in (("float32", torch.float32, TRAIN_GRAD_RTOL_F32), ("bfloat16", torch.bfloat16, TRAIN_GRAD_RTOL_BF16)):
+        grads = {}
+        for plain in (False, True):
+            state.model.net.plain_gru = plain
+            loss = train.recognition_loss(state.model, *lines, dtype=dtype)
+            grads[plain] = torch.autograd.grad(loss, list(params.values()))
+        state.model.net.plain_gru = False
+        rel = {
+            k: float((a - b).norm() / b.norm().clamp_min(1e-30))
+            for k, a, b in zip(params, grads[False], grads[True])
+        }
+        worst = max(rel, key=rel.get)
+        check(rel[worst] <= bound, f"train: {name} gradients, kernel vs plain route: {worst} {rel[worst]} <= {bound}")
+        grad_report[name] = {"max_rel_norm_diff": rel[worst], "at": worst, "bound": bound,
+                             "gru1.fwd.wh": rel["gru1.fwd.wh"], "gru2.bwd.wh": rel["gru2.bwd.wh"]}
+    report["crnn_gradients_kernel_vs_plain"] = grad_report
+
+    def run_steps(label, state, step, batch, launches_per_step=0):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_gru_counts()
+        losses = []
+        for _ in range(TRAIN_FALL_STEPS):
+            state, loss = step(state, *batch)
+            losses.append(float(loss))
+        launches = gru.bigru_sequence.launches + gru.gru_sequence.launches
+        for _ in range(TRAIN_WARMUP):
+            step(state, *batch)
+        times = [wall_ms(lambda: step(state, *batch), reps=1) for _ in range(TRAIN_TIMED)]
+        check(all(np.isfinite(losses)), f"train {label}: finite losses")
+        check(losses[-1] < losses[0], f"train {label}: the loss falls over {TRAIN_FALL_STEPS} steps ({losses[0]} -> {losses[-1]})")
+        if launches_per_step:
+            check(launches == launches_per_step * TRAIN_FALL_STEPS,
+                  f"train {label}: {launches_per_step} GRU launches a step ({launches} in {TRAIN_FALL_STEPS})")
+        return state, {
+            "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+            "step_ms": statistics.median(times), "step_ms_all": times,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+            "gru_launches": launches, "steps": state.step,
+        }
+
+    # CRNN at hidden 192, batch 64, width 768, the train_models.py chain.
+    crnn_step = train.make_recognition_train_step(opt)
+    state, report["crnn"] = run_steps("crnn", state, crnn_step, lines, launches_per_step=2)
+    train_launches = report["crnn"]["gru_launches"]
+
+    # The share of a CRNN step spent in its two BiGRU layers' backward (the
+    # recompute through the plain loop), timed inside the steps: CUDA events
+    # around BiGRUSequence.backward on the stream it runs on, against events
+    # around each whole step.
+    spans, step_spans = [], []
+    backward = vars(gru.BiGRUSequence)["backward"]
+
+    def timed_backward(ctx, grad):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = backward.__func__(ctx, grad)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    gru.BiGRUSequence.backward = staticmethod(timed_backward)
+    try:
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            crnn_step(state, *lines)
+            end.record()
+            step_spans.append((start, end))
+        torch.cuda.synchronize()
+    finally:
+        gru.BiGRUSequence.backward = backward
+    check(len(spans) == 2 * len(step_spans), f"train: two BiGRU backwards a CRNN step ({len(spans)} in {len(step_spans)})")
+    bwd_ms = [a.elapsed_time(b) for a, b in spans]
+    steps_ms = [a.elapsed_time(b) for a, b in step_spans]
+    report["crnn"]["bigru_backward_ms_in_step"] = bwd_ms
+    report["crnn"]["step_ms_with_backward_timed"] = steps_ms
+    report["crnn"]["bigru_backward_share_of_step"] = sum(bwd_ms) / sum(steps_ms)
+
+    # One BiGRU layer at the training shape: forward, forward + backward, on
+    # the kernel route (backward recomputed through the plain loop), the
+    # plain route and cuDNN's layer (a yardstick the port never calls).
+    layer = BiGRU(TRAIN_HIDDEN, TRAIN_HIDDEN, generator=torch.Generator().manual_seed(1)).to(dev).requires_grad_(True)
+    xb = torch.randn(TRAIN_BATCH, TRAIN_WIDTH // 4, TRAIN_HIDDEN, device=dev, generator=g).to(torch.bfloat16)
+
+    def fwd_bwd(plain):
+        layer(xb, plain=plain).float().sum().backward()
+
+    cudnn_gru = torch.nn.GRU(TRAIN_HIDDEN, TRAIN_HIDDEN, batch_first=True, bidirectional=True).to(dev)
+    xf = xb.float().requires_grad_()
+    torch.backends.cudnn.allow_tf32 = False
+    layer_ms = {
+        "shape": {"T": TRAIN_WIDTH // 4, "N": TRAIN_BATCH, "H": TRAIN_HIDDEN},
+        "kernel_forward_ms": cuda_ms(lambda: layer(xb), reps=10),
+        "kernel_forward_backward_ms": cuda_ms(lambda: fwd_bwd(False), reps=3, warmup=1),
+        "plain_forward_ms": cuda_ms(lambda: layer(xb, plain=True), reps=3, warmup=1),
+        "plain_forward_backward_ms": cuda_ms(lambda: fwd_bwd(True), reps=3, warmup=1),
+        "cudnn_forward_ms": cuda_ms(lambda: cudnn_gru(xf), reps=10),
+        "cudnn_forward_backward_ms": cuda_ms(lambda: cudnn_gru(xf)[0].sum().backward(), reps=10),
+    }
+    torch.backends.cudnn.allow_tf32 = True
+    layer_ms["kernel_backward_ms"] = layer_ms["kernel_forward_backward_ms"] - layer_ms["kernel_forward_ms"]
+    kernel_args = [t.detach() for t in (layer.fwd.wx, layer.bwd.wx)]
+    xps = [((xb @ w.to(xb.dtype)).float()).transpose(0, 1) for w in kernel_args]
+    rec = [t.detach().float().contiguous() for d in (layer.fwd, layer.bwd) for t in (d.wh, d.bh)]
+    layer_ms["bigru_sequence_ms"] = cuda_ms(lambda: gru.bigru_sequence(*xps, *rec), reps=10)
+    t_steps, n_rows = TRAIN_WIDTH // 4, TRAIN_BATCH
+    flops = 2 * 2.0 * n_rows * TRAIN_HIDDEN * 3 * TRAIN_HIDDEN * t_steps
+    nbytes = 2 * 4.0 * (4 * t_steps * n_rows * TRAIN_HIDDEN + 3 * TRAIN_HIDDEN * TRAIN_HIDDEN + 3 * TRAIN_HIDDEN)
+    by_ops, by_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    layer_ms["bigru_sequence_bound_ms"] = max(by_ops, by_bytes) * 1e3
+    layer_ms["bigru_sequence_bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
+    layer_ms["bigru_sequence_plain_ms"] = cuda_ms(lambda: gru.bigru_sequence_reference(*xps, *rec), reps=3, warmup=1)
+    report["bigru_layer_training_shape"] = layer_ms
+    del layer, xb, xf, xps, rec
+
+    # Checkpoint: save, restore into a fresh state, which must then hold the
+    # saved parameters, Adam count and moments exactly; one more step on each.
+    # cuDNN's convolution backward and the CTC backward sum in an order of
+    # their choosing: a gradient near 0 can change sign between two runs, and
+    # Adam then moves that weight by up to 2 * lr the other way (lr the rate
+    # of this step; f32 rounding adds 1e-6).
+    ckpt_dir = REPO / "build" / "chip_smoke_checkpoints"
+    path = checkpoint.save_checkpoint(ckpt_dir, state)
+    fresh = train.init_recognition_state(opt, n_classes=97, hidden=TRAIN_HIDDEN, seed=1, arch="crnn")
+    fresh = checkpoint.restore_checkpoint(path, fresh)
+    with torch.no_grad():
+        restored = [bool(torch.equal(a, b)) for a, b in zip(state.model.net.parameters(), fresh.model.net.parameters())]
+        for p, q in zip(state.optimizer.named_params.values(), fresh.optimizer.named_params.values()):
+            restored += [bool(torch.equal(state.optimizer.torch.state[p][k], fresh.optimizer.torch.state[q][k]))
+                         for k in ("exp_avg", "exp_avg_sq")]
+    check(fresh.optimizer.count == state.optimizer.count and all(restored),
+          f"train: a restored checkpoint holds the saved parameters, count and moments ({restored.count(False)} differ)")
+    lr = state.optimizer.learning_rate()
+    step = train.make_recognition_train_step(opt)
+    before = [p.detach().clone() for p in state.model.net.parameters()]
+    state, _ = step(state, *lines)
+    fresh, _ = step(fresh, *lines)
+    with torch.no_grad():
+        pairs = list(zip(state.model.net.parameters(), fresh.model.net.parameters()))
+        diffs = [float((a - b).abs().max()) for a, b in pairs]
+        moved = sum(int(((a - b).abs() > 1e-6).sum()) for a, b in pairs)
+        step_size = max(float((a - b).abs().max()) for a, b in zip(state.model.net.parameters(), before))
+    bound = 2 * lr + 1e-6
+    check(fresh.step == state.step and max(diffs) <= bound,
+          f"train: a step after a checkpoint round trip equals one without it (max |diff| {max(diffs)} <= {bound})")
+    report["checkpoint"] = {"file": path.name, "bytes": path.stat().st_size, "step": fresh.step,
+                            "learning_rate_of_the_step": lr, "largest_move_of_the_step": step_size,
+                            "max_abs_param_diff_after_one_step": max(diffs), "bound": bound,
+                            "params_off_by_more_than_1e-6": moved}
+    del state, fresh
+
+    # ConvCTC warm-started from the shipped weights, at the same batch.
+    params, _ = load_params(REPO / "weights" / "text-recognition.npz")
+    opt = recipe()
+    state = train.init_recognition_state(opt, arch="convctc", init_params=params)
+    _, report["convctc"] = run_steps("convctc", state, train.make_recognition_train_step(opt, arch="convctc"), lines)
+    del state
+
+    # The U-Net warm-started from the shipped weights: 16 pages of 800 x 608.
+    pages = train_pages(rng, DET_BATCH)
+    params, _ = load_params(REPO / "weights" / "text-detection.npz")
+    opt = recipe()
+    state = train.init_detection_state(opt, init_params=params)
+    _, report["unet"] = run_steps("unet", state, train.make_detection_train_step(opt), pages)
+    report["unet"]["target_share"] = float(pages[1].mean())
+    del state
+
+    # The demo, short: its loss curve and held-out decodes.
+    reset_gru_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = demo.main(DEMO_ARGS)
+    report["demo"] = {"args": DEMO_ARGS, **result, "printed": printed.getvalue().splitlines(),
+                      "gru_launches": gru.bigru_sequence.launches}
+    train_launches += gru.bigru_sequence.launches
+    check(all(np.isfinite(v) for _, v in result["loss_curve"]), "train: demo losses are finite")
+    report["seconds"] = time.perf_counter() - t_phase
+    return report, train_launches, large
+
+
 def main() -> int:
     import torch
 
@@ -1745,6 +2065,10 @@ def main() -> int:
         }
     )
 
+    # 13. Training on the card ------------------------------------------------------
+    train_report, train_launches, large = train_phase(dev)
+    emit({"phase": "train", "card": smi, **train_report})
+
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
@@ -1756,11 +2080,13 @@ def main() -> int:
                     "route": "cuda",
                     "source": "ocrs_tpu_torch/csrc/gru_seq.cu",
                     "replaces": "ocrs_tpu/ops/gru_pallas.py:41",
-                    "launches": launches + pipe_launches + sum(serve_launches.values()),
-                    "launches_by_path": {"engine": launches, "pipeline_crnn": pipe_launches, **serve_launches},
+                    "launches": launches + pipe_launches + sum(serve_launches.values()) + train_launches,
+                    "launches_by_path": {
+                        "engine": launches, "pipeline_crnn": pipe_launches, **serve_launches, "train": train_launches,
+                    },
                     "launch_sites": "the caller's thread (engine, pipeline), the batching service's worker "
                     "thread (serve_worker), the HTTP server's handler threads (serve_handlers)",
-                    "max_abs_err": max(max_err, worker_err),
+                    "max_abs_err": max(max_err, worker_err, *(v["max_abs_err"] for v in large.values())),
                     "max_abs_err_on_serve_worker_input": worker_err,
                     "shape": {"T": GRU_T, "N": GRU_N, "H": GRU_H},
                     "ms": kernel_ms,
@@ -1785,6 +2111,18 @@ def main() -> int:
                         "library_ms": big_library_ms,
                         "layer_ms": big_apply_ms,
                         "sync_floor_ms": big_sync_floor_ms,
+                    },
+                    # Hidden sizes 384 and 512 (clusters of 16 blocks) at T=608, N=20.
+                    "large_hidden": {
+                        str(h): {k: v[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                        for h, v in large.items()
+                    },
+                    # The training shape (T=192, N=64, H=192): the forward launch.
+                    "training_shape": {
+                        k: train_report["bigru_layer_training_shape"][k]
+                        for k in ("shape", "bigru_sequence_ms", "bigru_sequence_plain_ms", "bigru_sequence_bound_ms",
+                                  "kernel_forward_ms", "kernel_backward_ms", "cudnn_forward_ms",
+                                  "cudnn_forward_backward_ms")
                     },
                 }
             ]

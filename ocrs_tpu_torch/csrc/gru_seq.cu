@@ -19,7 +19,8 @@
 // thread-block cluster holds.
 //
 // Design:
-//  * One cluster of C <= 8 blocks per (direction, row tile of at most 16 rows).
+//  * One cluster of C <= 8 blocks (16 above hidden 256, see below) per (direction,
+//    row tile of at most 16 rows).
 //    Block c of the cluster owns U hidden units i in [c*U, c*U + U) and the
 //    three gate columns i, H+i, 2H+i of wh for them: an [H, 3U] slice (55 KB at
 //    H = 192, U = 24), loaded into shared memory once and kept for all T steps.
@@ -56,6 +57,15 @@
 //  * Inputs and output are addressed by element strides for (t, n), so the
 //    kernel reads the projection where the matrix product left it and writes
 //    both directions into the halves of one tensor.
+//  * Hidden sizes above 256 (up to 512) take a non-portable cluster of up to
+//    16 blocks of at most 32 units each (Hopper schedules a cluster of 16 on
+//    one GPC with cudaFuncAttributeNonPortableClusterSizeAllowed). The eight
+//    warps then take two or more k steps of 8 each per unit tile. Where the
+//    [H, 3U] slice of wh does not fit beside h and the partial sums (at
+//    U = 32: 196 KB, H > 384), the block reads its B fragments straight from
+//    wh in global memory every step instead (WG): a warp's load is four rows
+//    of 8 neighbouring floats, whole 32-byte sectors, and the whole of wh
+//    (3 MB at H = 512) stays in the 50 MB L2 for all T steps.
 //
 // MODE 1 and 2 are timing-only variants of the same kernel: 1 leaves out the
 // recurrent product (the sum of partials, gates, global traffic and exchange
@@ -181,10 +191,32 @@ __device__ long long g_prof[8];
 //   mbar 2 x 8 bytes (16)               one mbarrier per h buffer
 //   ws   float2 [K8][3][UT][32]         wh slice as B fragments: k step, gate, tile
 //                                       of 8 units, lane; K8 = C*UH/8, UT = UH/8
+//                                       (left out under WG)
 //   hs   float  [2][C][kRows][RS]       h, two buffers; RS = UH + 4 (no bank conflicts)
 //   part float  [kWarps][3][kRows][UH]  partial sums per k part
 //   bs   float  [3][U]                  bh of the block's units
-template <int MODE, int UT>
+// B fragment (k step ks, gate g, unit tile ut) of this lane, read from wh in
+// global memory (WG): rows of wh at padded k = ks*8 + lane%4 and + 4, column of
+// unit ut*8 + lane/4; zero at the pad positions, as the packed slice holds it.
+template <int UT>
+__device__ __forceinline__ float2 b_fragment_global(const float* wh, int H, int U, int u0, int ucnt,
+                                                    int ks, int g, int ut, int lane) {
+  const int kb = ks / UT;                          // block whose piece of h this k step reads
+  const int ku = (ks - kb * UT) * 8 + (lane & 3);  // unit in that block, first of the two rows
+  const int u = ut * 8 + (lane >> 2);
+  const int k = kb * U + ku;  // row of wh
+  const float* col = wh + g * H + u0 + u;
+  const bool ok = u < ucnt;
+  const float w0 = (ok && ku < U && k < H) ? __ldg(col + static_cast<size_t>(k) * 3 * H) : 0.0f;
+  const float w1 =
+      (ok && ku + 4 < U && k + 4 < H) ? __ldg(col + static_cast<size_t>(k + 4) * 3 * H) : 0.0f;
+  return make_float2(w0, w1);
+}
+
+// UT: tiles of 8 units per block; KSM: the most k steps a warp takes,
+// ceil(C * UT / 8) (UT for clusters of up to 8, 2*UT for up to 16); WG: wh is
+// read from global memory each step instead of a slice in shared memory.
+template <int MODE, int UT, int KSM, bool WG>
 __global__ void __launch_bounds__(kThreads) gru_seq_cluster_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -209,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) gru_seq_cluster_kernel(const Args a)
 
   const unsigned mbar0 = smem_u32(smem4);
   float2* ws = reinterpret_cast<float2*>(smem4 + 1);
-  float* hs = reinterpret_cast<float*>(ws + K8 * 3 * UT * 32);
+  float* hs = reinterpret_cast<float*>(WG ? ws : ws + K8 * 3 * UT * 32);
   float* part = hs + 2 * hbuf;
   float* bs = part + kWarps * ppart;
 
@@ -218,7 +250,7 @@ __global__ void __launch_bounds__(kThreads) gru_seq_cluster_kernel(const Args a)
     const int g = i / U, u = i - g * U;
     bs[i] = u < ucnt ? d.bh[g * H + u0 + u] : 0.0f;
   }
-  if (MODE == 0) {
+  if (MODE == 0 && !WG) {
     // B fragment of (k step ks, gate g, unit tile ut), lane l: rows of wh at
     // padded k = ks*8 + l%4 and + 4, column of unit ut*8 + l/4.
     for (int i = tid; i < K8 * 3 * UT * 32; i += kThreads) {
@@ -313,7 +345,7 @@ __global__ void __launch_bounds__(kThreads) gru_seq_cluster_kernel(const Args a)
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[ut][g][0][j] = acc[ut][g][1][j] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < UT; ++i) {  // KS <= UT k steps
+      for (int i = 0; i < KSM; ++i) {  // KS <= KSM k steps
         const int ks = ks_lo + i;
         if (ks < ks_hi) {
           // A fragment: h of rows fg and fg + 8 at k = ks*8 + ft and + 4.
@@ -328,7 +360,9 @@ __global__ void __launch_bounds__(kThreads) gru_seq_cluster_kernel(const Args a)
           for (int ut = 0; ut < UT; ++ut)
 #pragma unroll
             for (int g = 0; g < 3; ++g) {
-              const float2 w = ws[((ks * 3 + g) * UT + ut) * 32 + lane];
+              const float2 w =
+                  WG ? b_fragment_global<UT>(d.wh, H, U, u0, ucnt, ks, g, ut, lane)
+                     : ws[((ks * 3 + g) * UT + ut) * 32 + lane];
               split_tf32(w.x, bhi[ut][g][0], blo[ut][g][0]);
               split_tf32(w.y, bhi[ut][g][1], blo[ut][g][1]);
             }
@@ -394,11 +428,14 @@ __global__ void __launch_bounds__(kThreads) gru_seq_cluster_kernel(const Args a)
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       PROF(4);  // proxy fence
       __syncthreads();
-      // Warp p sends to peer p: the copies are issued side by side.
-      if (lane == 0 && warp < C && warp != c) {
+      // Warp w sends to peers w, w + 8: the copies are issued side by side.
+      if (lane == 0) {
         const unsigned src = smem_u32(hnext + c * piece);
-        bulk_copy_to_peer(map_to_rank(src, warp), src, piece_bytes,
-                          map_to_rank(mbar0 + 8 * ((s + 1) & 1), warp));
+        for (int p = warp; p < C; p += kWarps) {
+          if (p == c) continue;
+          bulk_copy_to_peer(map_to_rank(src, p), src, piece_bytes,
+                            map_to_rank(mbar0 + 8 * ((s + 1) & 1), p));
+        }
       }
     }
     PROF(5);  // block barrier and copies to the peers
@@ -421,11 +458,15 @@ __global__ void __launch_bounds__(kThreads) gru_seq_cluster_kernel(const Args a)
   cluster.sync();
 }
 
-template <int MODE, int UT>
+template <int MODE, int UT, int KSM, bool WG>
 cudaError_t launch(const Args& a, int n_dirs, int C, int smem, cudaStream_t stream) {
-  auto kernel = gru_seq_cluster_kernel<MODE, UT>;
+  auto kernel = gru_seq_cluster_kernel<MODE, UT, KSM, WG>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
+  if (C > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(C * n_dirs * a.n_tiles), 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -443,15 +484,26 @@ cudaError_t launch(const Args& a, int n_dirs, int C, int smem, cudaStream_t stre
   return cudaGetLastError();
 }
 
+// The variants launch_plan gives: clusters of up to 8 with the wh slice in
+// shared memory (hidden <= 256); clusters of up to 16 with the slice in shared
+// memory at 3 unit tiles (hidden <= 384), and with wh read from global memory
+// at 4 (hidden <= 512).
 template <int MODE>
-cudaError_t launch_ut(const Args& a, int n_dirs, int C, int smem, cudaStream_t stream) {
-  switch ((a.U + 7) / 8) {  // tiles of 8 units per block
-    case 1: return launch<MODE, 1>(a, n_dirs, C, smem, stream);
-    case 2: return launch<MODE, 2>(a, n_dirs, C, smem, stream);
-    case 3: return launch<MODE, 3>(a, n_dirs, C, smem, stream);
-    case 4: return launch<MODE, 4>(a, n_dirs, C, smem, stream);
-    default: return cudaErrorInvalidValue;
+cudaError_t launch_ut(const Args& a, int n_dirs, int C, int smem, int wh_global,
+                      cudaStream_t stream) {
+  const int ut = (a.U + 7) / 8;  // tiles of 8 units per block
+  if (C <= 8 && !wh_global) {
+    switch (ut) {
+      case 1: return launch<MODE, 1, 1, false>(a, n_dirs, C, smem, stream);
+      case 2: return launch<MODE, 2, 2, false>(a, n_dirs, C, smem, stream);
+      case 3: return launch<MODE, 3, 3, false>(a, n_dirs, C, smem, stream);
+      case 4: return launch<MODE, 4, 4, false>(a, n_dirs, C, smem, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (C > 8 && ut == 3 && !wh_global) return launch<MODE, 3, 6, false>(a, n_dirs, C, smem, stream);
+  if (C > 8 && ut == 4 && wh_global) return launch<MODE, 4, 8, true>(a, n_dirs, C, smem, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -464,12 +516,15 @@ cudaError_t launch_ut(const Args& a, int n_dirs, int C, int smem, cudaStream_t s
 //   os_n in elements, then reverse (0 or 1). All tensors are f32.
 // plan: C (blocks per cluster), U (hidden units per block; C*U >= H > (C-1)*U),
 //   R (rows per tile, at most 16; U at most 32) and the dynamic shared memory in bytes, as
-//   ocrs_tpu_torch/ops/gru.py::launch_plan computes them.
+//   ocrs_tpu_torch/ops/gru.py::launch_plan computes them; C above 8 is a non-portable
+//   cluster (hidden sizes above 256).
+// wh_global: 1 reads wh from global memory each step (no slice in shared memory; the
+//   plan's smem then leaves it out), 0 keeps the slice in shared memory.
 // mode: 0 the GRU; 1 and 2 the timing-only variants (see the note on top).
 // Returns 0, or the CUDA error of the refused launch.
 extern "C" int ocrs_gru_seq_launch(const long long* dirs, int n_dirs, int T, int N, int H, int C,
-                                   int U, int R, int smem, int mode, void* stream) {
-  if (n_dirs < 1 || n_dirs > 2 || T <= 0 || N <= 0 || H <= 0 || C < 1 || U < 1 || R < 1 ||
+                                   int U, int R, int smem, int wh_global, int mode, void* stream) {
+  if (n_dirs < 1 || n_dirs > 2 || T <= 0 || N <= 0 || H <= 0 || C < 1 || C > 16 || U < 1 || R < 1 ||
       R > kRows || C * U < H || (C - 1) * U >= H || R * U > kMaxOut * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = {};
@@ -497,9 +552,9 @@ extern "C" int ocrs_gru_seq_launch(const long long* dirs, int n_dirs, int T, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (mode) {
-    case 0: e = launch_ut<0>(a, n_dirs, C, smem, st); break;
-    case 1: e = launch_ut<1>(a, n_dirs, C, smem, st); break;
-    case 2: e = launch_ut<2>(a, n_dirs, C, smem, st); break;
+    case 0: e = launch_ut<0>(a, n_dirs, C, smem, wh_global, st); break;
+    case 1: e = launch_ut<1>(a, n_dirs, C, smem, wh_global, st); break;
+    case 2: e = launch_ut<2>(a, n_dirs, C, smem, wh_global, st); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

@@ -5,8 +5,12 @@ leaf names (``w``, ``b``; ``wx``, ``wh``, ``bx``, ``bh``), so a JAX
 checkpoint loads through :func:`..weights.params_from_jax` with no renaming.
 
 Compute convention, as in the JAX package: activations in the caller's dtype
-(bf16 on the inference path), parameters stored in float32 and cast to the
-activation dtype at use, and the bias added after the product in that dtype.
+(bf16 on the inference path and in training), parameters stored in float32
+and cast to the activation dtype at use, and the bias added after the product
+in that dtype. Parameters are made without grad, so an inference forward
+builds no graph; ``requires_grad_()`` makes a model trainable (the training
+states of :mod:`ocrs_tpu_torch.train` do so), and every layer, the GRU
+kernel's included, is then differentiable.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.gru import bigru_sequence, bigru_sequence_reference
+from ..ops.gru import BiGRUSequence, bigru_sequence_reference
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -141,19 +145,19 @@ def bigru_apply(params: dict, x: torch.Tensor, plain: bool = False) -> torch.Ten
     inference path), then in float32 with ``bx`` added; both recurrences run
     in float32 in one launch of :func:`..ops.gru.bigru_sequence`, which reads
     the [N, T, 3H] projections in place and writes the halves of the
-    [N, T, 2H] result. `plain` swaps the CUDA sequence kernel for its plain
-    PyTorch version (a test switch; the CPU takes it anyway)."""
-    f32 = torch.float32
+    [N, T, 2H] result, through :class:`..ops.gru.BiGRUSequence`, whose
+    backward recomputes through the plain loops. `plain` swaps the CUDA
+    sequence kernel for its plain PyTorch version, differentiated by autograd
+    (a test switch; on the CPU both run the plain loops). A float64 `x`
+    keeps float64 in the recurrence (the CPU's double-precision checks), as
+    the JAX package's ``gru_apply`` does."""
+    f32 = torch.promote_types(torch.float32, x.dtype)
     dirs = (params["fwd"], params["bwd"])
     xps = [((x @ p["wx"].to(x.dtype)).to(f32) + p["bx"].to(f32)).transpose(0, 1) for p in dirs]
     rec = [t for p in dirs for t in (p["wh"].to(f32).contiguous(), p["bh"].to(f32).contiguous())]
     if plain:
         return bigru_sequence_reference(*xps, *rec).transpose(0, 1).to(x.dtype)
-    n, t_len = x.shape[:2]
-    hidden = rec[0].shape[0]
-    out = torch.empty((n, t_len, 2 * hidden), dtype=f32, device=x.device)
-    bigru_sequence(*xps, *rec, out=out.transpose(0, 1))
-    return out.to(x.dtype)
+    return BiGRUSequence.apply(*xps, *rec).to(x.dtype)
 
 
 class BiGRU(nn.Module):

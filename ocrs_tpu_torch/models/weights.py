@@ -21,6 +21,9 @@ source as the JAX package does: local paths pass through, and an
   * biases and LayerNorm ``g``/``b`` are kept.
 
 The map goes by key as well as by rank: only a leaf named ``w`` is a kernel.
+:func:`params_to_jax` is its inverse, and :func:`save_params` writes a tree
+in the JAX package's layout, so a model (or a training checkpoint) the port
+writes loads in ``ocrs_tpu.models.weights.load_params`` and back here.
 """
 
 from __future__ import annotations
@@ -86,8 +89,8 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Any:
     return listify(tree)
 
 
-def load_params(path: str | Path) -> tuple[Any, dict]:
-    """Load a JAX-layout parameter pytree (numpy leaves) and its metadata."""
+def load_flat(path: str | Path) -> tuple[dict[str, np.ndarray], dict]:
+    """A weight file's leaves by their ``/``-joined keys, and its metadata."""
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     meta_arr = flat.pop(_META_KEY, None)
@@ -96,7 +99,22 @@ def load_params(path: str | Path) -> tuple[Any, dict]:
         if meta_arr is not None
         else {}
     )
+    return flat, meta
+
+
+def load_params(path: str | Path) -> tuple[Any, dict]:
+    """Load a JAX-layout parameter pytree (numpy leaves) and its metadata."""
+    flat, meta = load_flat(path)
     return _unflatten(flat), meta
+
+
+def save_params(path: str | Path, params: Any, meta: dict | None = None) -> None:
+    """Save a JAX-layout tree (nested dicts and lists of arrays, e.g. from
+    :func:`params_to_jax`) and its JSON metadata as a flat ``.npz`` with
+    ``/``-joined keys: ``ocrs_tpu.models.weights.save_params``'s layout."""
+    flat = {k.replace(".", _SEP): v for k, v in _flatten(params).items()}
+    flat[_META_KEY] = np.frombuffer(json.dumps(meta or {}).encode("utf-8"), dtype=np.uint8)
+    np.savez(path, **flat)
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
@@ -107,6 +125,8 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}{i}."))
+    elif isinstance(tree, torch.Tensor):
+        out[prefix[:-1]] = tree.detach().cpu().numpy()
     else:
         out[prefix[:-1]] = np.asarray(tree)
     return out
@@ -135,6 +155,26 @@ def params_from_jax(params: Any) -> dict[str, torch.Tensor]:
             arr = np.transpose(arr, (2, 1, 0))
         state[key] = torch.tensor(np.ascontiguousarray(arr))
     return state
+
+
+def params_to_jax(state: Mapping[str, Any]) -> Any:
+    """A PyTorch state dict (``.``-joined keys; tensors or arrays) -> the JAX
+    package's parameter tree with numpy float32 leaves: the inverse of
+    :func:`params_from_jax` (OIHW -> HWIO, depthwise ``[dim, 1, k]`` -> WIO,
+    the rest as it is; numbered keys become lists). Tensors shaped like the
+    parameters (Adam's moments) map the same way. Leaves are float32
+    (float64 ones stay float64)."""
+    flat = {}
+    for key, value in state.items():
+        arr = value.detach().cpu() if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+        arr = (arr if arr.dtype == torch.float64 else arr.to(torch.float32)).numpy()
+        path = key.split(".")
+        if path[-1] == "w" and arr.ndim == 4:  # OIHW -> HWIO
+            arr = np.transpose(arr, (2, 3, 1, 0))
+        elif path[-2:] == ["dw", "w"] and arr.ndim == 3:  # [dim, 1, k] -> WIO
+            arr = np.transpose(arr, (2, 1, 0))
+        flat[_SEP.join(path)] = np.ascontiguousarray(arr)
+    return _unflatten(flat)
 
 
 def load_detection_model(source: str | Path):

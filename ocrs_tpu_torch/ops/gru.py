@@ -15,7 +15,14 @@ plain version: the kernel runs or the call raises.
 
 The kernel runs as thread-block clusters: :func:`launch_plan` splits the
 hidden units over the blocks of a cluster and the batch rows over row tiles,
-and refuses what does not fit a block's shared memory.
+and refuses hidden sizes above :data:`MAX_HIDDEN`.
+
+:class:`GRUSequence` and :class:`BiGRUSequence` make the kernel
+differentiable, as ``jax.custom_vjp`` makes the Pallas kernel
+(``gru_pallas.py::_gru_pallas_vjp``): the forward launches it (the plain loop
+on the CPU), and the backward recomputes the recurrence through the plain
+loop under autograd, as ``_gru_bwd`` recomputes through ``lax.scan``. There
+is no backward kernel; the JAX package has none either.
 
 :func:`gru_apply` is the one-direction layer (``_gru_pallas_impl``): the input
 projection for all timesteps as one matrix product outside the kernel, then
@@ -38,12 +45,16 @@ _count_lock = threading.Lock()
 
 #: Blocks per cluster: 8 is the largest size every Hopper launch may ask for.
 MAX_CLUSTER = 8
+#: Blocks per cluster above hidden size MAX_UNITS * MAX_CLUSTER: a
+#: non-portable cluster, which Hopper schedules on one GPC.
+MAX_CLUSTER_LARGE = 16
 #: Batch rows per cluster (the M = 16 of the kernel's tensor-core tile); more
 #: rows go to further clusters (row tiles).
 MAX_ROWS = 16
-#: Hidden units per block the kernel is compiled for (four tiles of 8), so
-#: hidden sizes up to 256.
+#: Hidden units per block the kernel is compiled for (four tiles of 8).
 MAX_UNITS = 32
+#: The largest hidden size the kernel serves: 16 blocks of 32 units.
+MAX_HIDDEN = MAX_UNITS * MAX_CLUSTER_LARGE
 #: Warps per block: the parts of k whose partial sums a block keeps.
 WARPS = 8
 #: Dynamic shared memory one block may use on Hopper (227 KB).
@@ -58,10 +69,21 @@ def launch_plan(n: int, hidden: int) -> dict[str, int]:
     block fewer when `hidden` does not divide) and keeps their
     ``[hidden, 3 * units]`` slice of ``wh``, two copies of the tile's ``h``
     and the partial sums of its 8 parts of k in shared memory (``smem``
-    bytes). Raises ``ValueError`` when that does not fit one block."""
+    bytes). Up to hidden 256 a cluster has at most 8 blocks; above, up to
+    16 (non-portable). Where the slice of ``wh`` does not fit beside the
+    rest (hidden above 384), ``wh_global`` is 1: the kernel reads ``wh``
+    from global memory (L2) every step and ``smem`` leaves the slice out.
+    Raises ``ValueError`` above hidden :data:`MAX_HIDDEN`."""
     if n < 1 or hidden < 1:
         raise ValueError(f"launch_plan needs n >= 1 and hidden >= 1, got {n}, {hidden}")
-    units = -(-hidden // MAX_CLUSTER)
+    if hidden > MAX_HIDDEN:
+        raise ValueError(
+            f"hidden size {hidden} is too large for the GRU kernel: it serves hidden sizes up to "
+            f"{MAX_HIDDEN} (clusters of at most {MAX_CLUSTER_LARGE} blocks of at most {MAX_UNITS} "
+            f"units; a Hopper block has at most {SMEM_LIMIT} bytes, 227 KB, of shared memory)"
+        )
+    max_cluster = MAX_CLUSTER if hidden <= MAX_UNITS * MAX_CLUSTER else MAX_CLUSTER_LARGE
+    units = -(-hidden // max_cluster)
     cluster = -(-hidden // units)
     tiles = -(-n // MAX_ROWS)
     rows = -(-n // tiles)
@@ -71,15 +93,13 @@ def launch_plan(n: int, hidden: int) -> dict[str, int]:
     ws = 8 * k8 * 3 * (uh // 8) * 32
     hs = 4 * 2 * cluster * MAX_ROWS * (uh + 4)
     part = 4 * WARPS * 3 * MAX_ROWS * uh
-    smem = 16 + ws + hs + part + 4 * 3 * units
-    if units > MAX_UNITS or smem > SMEM_LIMIT:
-        raise ValueError(
-            f"hidden size {hidden} is too large for the GRU kernel: a block of its cluster of "
-            f"{cluster} would hold {units} hidden units and need {smem} bytes of shared memory; "
-            f"the kernel takes at most {MAX_UNITS} units per block (hidden size "
-            f"{MAX_UNITS * MAX_CLUSTER}), and a Hopper block has at most {SMEM_LIMIT} bytes (227 KB)"
-        )
-    return {"cluster": cluster, "units": units, "tiles": tiles, "rows": rows, "smem": smem}
+    rest = 16 + hs + part + 4 * 3 * units
+    wh_global = rest + ws > SMEM_LIMIT
+    smem = rest if wh_global else rest + ws
+    return {
+        "cluster": cluster, "units": units, "tiles": tiles, "rows": rows, "smem": smem,
+        "wh_global": int(wh_global),
+    }
 
 
 def _kernel():
@@ -87,7 +107,7 @@ def _kernel():
     fn = lib.ocrs_gru_seq_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -107,7 +127,7 @@ def _launch(dirs, t_len: int, n: int, hidden: int, mode: int = 0) -> None:
     with torch.cuda.device(device):
         err = fn(
             packed, len(dirs), t_len, n, hidden,
-            plan["cluster"], plan["units"], plan["rows"], plan["smem"], mode,
+            plan["cluster"], plan["units"], plan["rows"], plan["smem"], plan["wh_global"], mode,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
@@ -120,6 +140,15 @@ def _count(wrapper) -> None:
     with _count_lock:
         wrapper.launches += 1
         wrapper.launches_by_thread[threading.current_thread().name] += 1
+
+
+def _check_dtype(tensors, name: str) -> None:
+    """float32 everywhere; float64 too on the CPU, where the plain version
+    runs (the double-precision gradient checks)."""
+    dtype, device = tensors[0].dtype, tensors[0].device
+    ok = dtype == torch.float32 or (dtype == torch.float64 and device.type == "cpu")
+    if not ok or any(x.dtype != dtype for x in tensors):
+        raise TypeError(f"{name} takes float32 tensors (float64 on the CPU), all of one dtype")
 
 
 def _check(xr, xz, xn, wh, bh) -> None:
@@ -135,8 +164,6 @@ def _check(xr, xz, xn, wh, bh) -> None:
             f"expected wh [{h}, {3 * h}] and bh [{3 * h}], got {tuple(wh.shape)}, {tuple(bh.shape)}"
         )
     tensors = (xr, xz, xn, wh, bh)
-    if any(x.dtype != torch.float32 for x in tensors):
-        raise TypeError("gru_sequence takes float32 tensors")
     if any(x.device != xr.device for x in tensors):
         raise ValueError("gru_sequence operands must share one device")
     ld = xr.stride(1)
@@ -147,6 +174,7 @@ def _check(xr, xz, xn, wh, bh) -> None:
             raise ValueError("xr/xz/xn must share a row-major layout with unit inner stride")
     if not (wh.is_contiguous() and bh.is_contiguous()):
         raise ValueError("wh and bh must be contiguous")
+    _check_dtype(tensors, "gru_sequence")
     if xr.numel():
         launch_plan(n, h)
 
@@ -160,15 +188,17 @@ def gru_sequence_reference(
     t_len, n, hidden = xr.shape
     br, bz, bn = bh.reshape(3, hidden)
     h = xr.new_zeros((n, hidden))
-    out = torch.empty((t_len, n, hidden), dtype=xr.dtype, device=xr.device)
+    hs = [None] * t_len
     for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
         hr, hz, hn = (h @ wh).split(hidden, dim=-1)
         r = torch.sigmoid(xr[t] + hr + br)
         z = torch.sigmoid(xz[t] + hz + bz)
         nval = torch.tanh(xn[t] + r * (hn + bn))
         h = (1.0 - z) * nval + z * h
-        out[t] = h
-    return out
+        hs[t] = h
+    if not t_len:
+        return xr.new_empty((0, n, hidden))
+    return torch.stack(hs)
 
 
 def gru_sequence(
@@ -186,7 +216,7 @@ def gru_sequence(
     if xr.device.type != "cuda":
         raise ValueError(f"gru_sequence runs on cuda or cpu, not {xr.device.type}")
     t_len, n, hidden = xr.shape
-    out = torch.empty((t_len, n, hidden), dtype=torch.float32, device=xr.device)
+    out = torch.empty((t_len, n, hidden), dtype=xr.dtype, device=xr.device)
     if out.numel() == 0:
         return out
     _launch([(xr, xz, xn, wh, bh, out, reverse)], t_len, n, hidden)
@@ -220,14 +250,13 @@ def _check_bigru(xp_fwd, xp_bwd, wh_fwd, bh_fwd, wh_bwd, bh_bwd, out) -> None:
         if out.shape != (t, n, 2 * h):
             raise ValueError(f"expected out [{t}, {n}, {2 * h}], got {tuple(out.shape)}")
         tensors.append(out)
-    if any(x.dtype != torch.float32 for x in tensors):
-        raise TypeError("bigru_sequence takes float32 tensors")
     if any(x.device != xp_fwd.device for x in tensors):
         raise ValueError("bigru_sequence operands must share one device")
     # Any strides for t and n, so that the [N, T, 3H] product and the
     # [N, T, 2H] result are used where they lie; rows of floats side by side.
     if any(x.stride(2) != 1 for x in tensors if x.dim() == 3 and x.numel()):
         raise ValueError("xp_fwd, xp_bwd and out must have unit inner stride")
+    _check_dtype(tensors, "bigru_sequence")
     if xp_fwd.numel():
         launch_plan(n, h)
 
@@ -272,7 +301,7 @@ def bigru_sequence(
     t_len, n, h3 = xp_fwd.shape
     hidden = h3 // 3
     if out is None:
-        out = torch.empty((t_len, n, 2 * hidden), dtype=torch.float32, device=device)
+        out = torch.empty((t_len, n, 2 * hidden), dtype=xp_fwd.dtype, device=device)
     if out.numel() == 0:
         return out
     if device.type == "cpu":
@@ -297,21 +326,75 @@ bigru_sequence.launches = 0
 bigru_sequence.launches_by_thread = Counter()
 
 
+def _recompute_grads(ctx, reference, grad, *args):
+    """Gradients of a sequence Function's tensor inputs: the recurrence run
+    again through `reference` under autograd, from detached copies of the
+    saved inputs, and differentiated against `grad`."""
+    needs = ctx.needs_input_grad[: len(ctx.saved_tensors)]
+    inputs = [x.detach().requires_grad_(need) for x, need in zip(ctx.saved_tensors, needs)]
+    with torch.enable_grad():
+        out = reference(*inputs, *args)
+    grads = iter(torch.autograd.grad(out, [x for x, need in zip(inputs, needs) if need], grad))
+    return [next(grads) if need else None for need in needs]
+
+
+class GRUSequence(torch.autograd.Function):
+    """Differentiable :func:`gru_sequence`: ``GRUSequence.apply(xr, xz, xn,
+    wh, bh, reverse) -> [T, N, H]``. The forward launches the kernel (the
+    plain loop on the CPU); the backward recomputes through
+    :func:`gru_sequence_reference` and returns the gradients of xr, xz, xn,
+    wh and bh."""
+
+    @staticmethod
+    def forward(ctx, xr, xz, xn, wh, bh, reverse):
+        ctx.save_for_backward(xr, xz, xn, wh, bh)
+        ctx.reverse = bool(reverse)
+        return gru_sequence(xr, xz, xn, wh, bh, reverse=reverse)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*_recompute_grads(ctx, gru_sequence_reference, grad, ctx.reverse), None)
+
+
+class BiGRUSequence(torch.autograd.Function):
+    """Differentiable :func:`bigru_sequence`, batch-first: ``BiGRUSequence.apply(
+    xp_fwd, xp_bwd, wh_fwd, bh_fwd, wh_bwd, bh_bwd) -> [N, T, 2H]`` from the
+    [T, N, 3H] projections (any strides for t and n, as
+    :func:`bigru_sequence` takes them). The forward is one launch into an
+    [N, T, 2H] tensor (the plain loops on the CPU); the backward recomputes
+    through :func:`bigru_sequence_reference` and returns the gradients of
+    all six operands."""
+
+    @staticmethod
+    def forward(ctx, xp_fwd, xp_bwd, wh_fwd, bh_fwd, wh_bwd, bh_bwd):
+        ctx.save_for_backward(xp_fwd, xp_bwd, wh_fwd, bh_fwd, wh_bwd, bh_bwd)
+        t_len, n, h3 = xp_fwd.shape
+        out = torch.empty((n, t_len, 2 * (h3 // 3)), dtype=xp_fwd.dtype, device=xp_fwd.device)
+        bigru_sequence(xp_fwd, xp_bwd, wh_fwd, bh_fwd, wh_bwd, bh_bwd, out=out.transpose(0, 1))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return tuple(_recompute_grads(ctx, bigru_sequence_reference, grad.transpose(0, 1)))
+
+
 def gru_apply(params: dict, x: torch.Tensor, reverse: bool = False, plain: bool = False) -> torch.Tensor:
     """One GRU direction over [N, T, C] -> [N, T, H] in ``x.dtype``.
 
     The input projection runs in ``x.dtype`` (bf16 on the inference path),
     then in float32 with ``bx`` added; the recurrence runs in float32 in
-    :func:`gru_sequence`, or in :func:`gru_sequence_reference` when `plain`."""
+    :class:`GRUSequence` (the kernel), or in :func:`gru_sequence_reference`
+    when `plain`. Both are differentiable. A float64 `x` keeps float64 in
+    the recurrence (CPU only), as the JAX package's ``gru_apply`` does."""
     hidden = params["wh"].shape[0]
-    xp = (x @ params["wx"].to(x.dtype)).to(torch.float32) + params["bx"].to(torch.float32)
+    f32 = torch.promote_types(torch.float32, x.dtype)
+    xp = (x @ params["wx"].to(x.dtype)).to(f32) + params["bx"].to(f32)
     xp = xp.transpose(0, 1).contiguous()  # [T, N, 3H]
     xr, xz, xn = xp.split(hidden, dim=-1)
-    seq = gru_sequence_reference if plain else gru_sequence
-    hs = seq(
-        xr, xz, xn,
-        params["wh"].to(torch.float32).contiguous(),
-        params["bh"].to(torch.float32).contiguous(),
-        reverse=reverse,
-    )
+    wh = params["wh"].to(f32).contiguous()
+    bh = params["bh"].to(f32).contiguous()
+    if plain:
+        hs = gru_sequence_reference(xr, xz, xn, wh, bh, reverse=reverse)
+    else:
+        hs = GRUSequence.apply(xr, xz, xn, wh, bh, reverse)
     return hs.transpose(0, 1).to(x.dtype)

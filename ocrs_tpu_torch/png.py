@@ -4,11 +4,12 @@ The engine takes pixels, not files. The CLI, the server and the scripts that
 drive the port read and write PNG through this module, on machines with or
 without an imaging package:
 
-  * :func:`decode_png` / :func:`read_png`: non-interlaced PNG of bit depth 1,
-    2, 4 or 8, grey, RGB, palette, grey+alpha and RGBA. Rows filtered None,
-    Sub and Up are undone a run of rows at a time; Average and Paeth depend
-    on the byte to their left as it comes out, and are undone one byte at a
-    time in Python (seconds for a large page).
+  * :func:`decode_png` / :func:`read_png`: PNG of every colour type (grey,
+    RGB, palette, grey+alpha, RGBA) and bit depth (1, 2, 4, 8 and 16), plain
+    or Adam7-interlaced, read to 8 bits as Pillow reads it. Rows filtered
+    None, Sub and Up are undone a run of rows at a time; Average and Paeth
+    depend on the byte to their left as it comes out, and are undone one
+    byte at a time in Python (seconds for a large page).
   * :func:`encode_png` / :func:`write_png`: grey, RGB and RGBA, 8 bit, each
     row filtered None or Up (whichever leaves the smaller residuals),
     ``zlib`` level 6.
@@ -32,6 +33,8 @@ from .errors import ImageSourceError
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: PNG colour type -> samples per pixel (grey, RGB, palette, grey+alpha, RGBA).
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+#: Adam7 passes: (first row, first column, row step, column step).
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 #: Channel count of an encoded array -> PNG colour type.
 _COLOUR_TYPE = {1: 0, 3: 2, 4: 6}
 #: zlib level of :func:`encode_png`.
@@ -98,12 +101,38 @@ def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(rows: np.ndarray, width: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, width, ch]: uint8, or
+    uint16 at bit depth 16 (big-endian in the file); samples of 1, 2 or 4
+    bits unpacked, most significant bits first, not scaled."""
+    height = rows.shape[0]
+    if depth == 16:
+        pairs = rows[:, : width * ch * 2].reshape(height, width * ch, 2).astype(np.uint16)
+        return ((pairs[..., 0] << 8) | pairs[..., 1]).reshape(height, width, ch)
+    if depth < 8:
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+        return samples.reshape(height, -1)[:, :width].reshape(height, width, 1)
+    return rows.reshape(height, width, ch)
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """Decode PNG bytes into an (H, W, C) uint8 array: C = 1 for grey (and
     grey+alpha, whose alpha is dropped), 3 for RGB and palette images, 4 for
-    RGBA. Samples of 1, 2 or 4 bits are scaled to 0..255 as Pillow scales
-    them. Raises :class:`~.errors.ImageSourceError` for bytes that are not
-    such a PNG (16-bit samples and interlaced images included)."""
+    RGBA. Plain and Adam7-interlaced images alike. Samples are read to 8 bits
+    as Pillow's ``Image.open`` reads them:
+
+      * 1, 2 and 4-bit grey is scaled to 0..255 (x 255, 85, 17); palette
+        indices of any depth look up PLTE;
+      * 16-bit grey (Pillow's mode ``I;16``) is clipped at 255: 0, 100,
+        255, 256, 1000, 65535 -> 0, 100, 255, 255, 255, 255;
+      * 16-bit RGB, RGBA and grey+alpha keep the high byte: 0x1234, 0xABCD,
+        0xFF00 -> 18, 171, 255;
+      * ``tRNS`` (a transparent colour or palette alphas) changes no sample:
+        ``convert("RGB")`` drops transparency, and so does this reader.
+
+    Raises :class:`~.errors.ImageSourceError` for bytes that are not a PNG
+    of these kinds."""
     if data[:8] != _SIGNATURE:
         raise ImageSourceError("not a PNG file")
     pos, idat, header, palette = 8, [], None, None
@@ -126,29 +155,36 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ImageSourceError("PNG: missing IHDR")
     width, height, depth, ctype, _, _, interlace = header
-    if ctype not in _CHANNELS or interlace != 0 or depth not in (1, 2, 4, 8) or (depth < 8 and ctype not in (0, 3)):
+    valid_depths = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
+    if ctype not in _CHANNELS or interlace not in (0, 1) or depth not in valid_depths:
         raise ImageSourceError(
-            f"PNG: colour type {ctype}, bit depth {depth}, interlace {interlace} is not supported "
-            "(non-interlaced 8-bit grey/RGB/grey+alpha/RGBA, and grey or palette of 1-8 bits)"
+            f"PNG: colour type {ctype}, bit depth {depth}, interlace {interlace} is not a valid PNG "
+            "(grey: 1-16 bits, palette: 1-8, RGB, grey+alpha and RGBA: 8 or 16; interlace 0 or 1)"
         )
     if ctype == 3 and palette is None:
         raise ImageSourceError("PNG: palette image without PLTE")
     ch = _CHANNELS[ctype]
-    stride = (width * ch * depth + 7) // 8
+    bpp = max(1, ch * depth // 8)
+    img = np.empty((height, width, ch), np.uint16 if depth == 16 else np.uint8)
     try:
         raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
-        raw = raw[: height * (stride + 1)].reshape(height, stride + 1)
+        pos = 0
+        # A plain image is one pass; an interlaced one seven sub-images, each
+        # with its own filtered scanlines (an empty pass has none).
+        for y0, x0, dy, dx in _ADAM7 if interlace else ((0, 0, 1, 1),):
+            sub_h, sub_w = -(-(height - y0) // dy), -(-(width - x0) // dx)
+            if sub_h <= 0 or sub_w <= 0:
+                continue
+            stride = (sub_w * ch * depth + 7) // 8
+            part = raw[pos : pos + sub_h * (stride + 1)].reshape(sub_h, stride + 1)
+            pos += sub_h * (stride + 1)
+            img[y0::dy, x0::dx] = _samples(_unfilter(part, bpp), sub_w, ch, depth)
     except (zlib.error, ValueError) as exc:
         raise ImageSourceError(f"PNG: corrupt image data ({exc})") from exc
-    rows = _unfilter(raw, max(1, ch * depth // 8))
-    if depth < 8:  # unpack the samples of each row, most significant bits first
-        per_byte = 8 // depth
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
-        rows = samples.reshape(height, stride * per_byte)[:, :width]
-        if ctype == 0:
-            rows = rows * np.uint8(255 // ((1 << depth) - 1))
-    img = rows.reshape(height, width, ch)
+    if depth == 16:
+        img = np.minimum(img, 255).astype(np.uint8) if ctype == 0 else (img >> 8).astype(np.uint8)
+    elif depth < 8 and ctype == 0:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
     if ctype == 3:
         if int(img.max(initial=0)) >= len(palette):
             raise ImageSourceError("PNG: palette index out of range")

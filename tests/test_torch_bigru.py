@@ -194,11 +194,11 @@ def test_wrapper_rejects_bad_out():
         gru.bigru_sequence(*xps, *rec, out=torch.empty(T, 3, 4 * H)[..., ::2])
 
 
-@pytest.mark.parametrize("hidden", [257, 400])
+@pytest.mark.parametrize("hidden", [513, 640])
 def test_hidden_size_beyond_the_kernel_raises_with_the_limit(hidden):
     # The same call raises on the CPU as on the card: the wrapper never swaps a
     # hidden size the kernel cannot take for the plain version.
-    with pytest.raises(ValueError, match=r"at most 32 units per block \(hidden size 256\).*227 KB"):
+    with pytest.raises(ValueError, match=r"serves hidden sizes up to 512 .*at most 16 blocks .*227 KB"):
         gru.launch_plan(3, hidden)
     x = torch.zeros(1, 1, 3 * hidden)
     wh, bh = torch.zeros(hidden, 3 * hidden), torch.zeros(3 * hidden)

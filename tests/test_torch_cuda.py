@@ -428,3 +428,58 @@ def test_batching_service_on_card_makes_one_batch(arch):
         # A random CRNN's text depends on the batch's padded width: the lines
         # are the engine's, and the kernel ran on the worker thread.
         assert [len(t.splitlines()) for t in got] == [len(t.splitlines()) for t in want] and worker >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 20])
+@pytest.mark.parametrize("hidden", [300, 384, 400, 512])
+def test_large_hidden_sizes_on_card(hidden, n):
+    # Clusters of 16 blocks; wh's slice in shared memory up to 384, read
+    # from global memory above.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xps, rec = _bigru_operands(37, n, hidden, strided=True, seed=3)
+    got = gru.bigru_sequence(*xps, *rec)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, gru.bigru_sequence_reference(*xps, *rec), rtol=0, atol=1e-4)
+    xr, xz, xn = xps[0].contiguous().split(hidden, dim=-1)
+    one = gru.gru_sequence(xr, xz, xn, rec[0], rec[1], reverse=True)
+    torch.testing.assert_close(one, gru.gru_sequence_reference(xr, xz, xn, rec[0], rec[1], reverse=True), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_function_gradients_on_card_equal_the_plain_loops():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xps, rec = _bigru_operands(50, 6, 64, strided=True, seed=4)
+    ops = [t.detach().requires_grad_() for t in (*xps, *rec)]
+    w = torch.randn(6, 50, 128, device="cuda", generator=torch.Generator(device="cuda").manual_seed(5))
+    before = gru.bigru_sequence.launches
+    out = gru.BiGRUSequence.apply(*ops)
+    assert out.grad_fn is not None and gru.bigru_sequence.launches == before + 1
+    got = torch.autograd.grad((out * w).sum(), ops)
+    want = torch.autograd.grad((gru.bigru_sequence_reference(*ops).transpose(0, 1) * w).sum(), ops)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_crnn_train_step_on_card_launches_the_kernel_and_lowers_the_loss():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import numpy as np
+
+    from ocrs_tpu_torch.train import demo, optim, train
+
+    opt = optim.adam(1e-3)
+    state = train.init_recognition_state(opt, hidden=64)
+    step = train.make_recognition_train_step(opt)
+    batch = demo.make_batch(np.random.default_rng(0), 8, 256)
+    before = gru.bigru_sequence.launches
+    state, loss1 = step(state, *batch)
+    state, loss2 = step(state, *batch)
+    assert gru.bigru_sequence.launches == before + 4
+    assert state.model.net.gru1.fwd.wh.grad is not None and float(state.model.net.gru1.fwd.wh.grad.abs().sum()) > 0
+    assert float(loss2) < float(loss1)

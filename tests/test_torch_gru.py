@@ -143,3 +143,49 @@ def test_wrapper_takes_gate_slices_of_one_projection():
         rtol=0,
         atol=0,
     )
+
+
+@pytest.mark.parametrize(
+    "n, hidden, want",
+    [
+        # Above hidden 256: clusters of 16 blocks. wh's slice stays in shared
+        # memory up to 384 and is read from global memory above.
+        (20, 384, {"cluster": 16, "units": 24, "tiles": 2, "rows": 10, "wh_global": 0}),
+        (20, 512, {"cluster": 16, "units": 32, "tiles": 2, "rows": 10, "wh_global": 1}),
+        (64, 300, {"cluster": 16, "units": 19, "tiles": 4, "rows": 16, "wh_global": 0}),
+        (5, 400, {"cluster": 16, "units": 25, "tiles": 1, "rows": 5, "wh_global": 1}),
+        (20, 192, {"cluster": 8, "units": 24, "tiles": 2, "rows": 10, "wh_global": 0}),
+    ],
+)
+def test_launch_plan_of_large_hidden_sizes(n, hidden, want):
+    plan = gru.launch_plan(n, hidden)
+    assert {k: plan[k] for k in want} == want
+    assert plan["cluster"] * plan["units"] >= hidden > (plan["cluster"] - 1) * plan["units"]
+    assert 0 < plan["smem"] <= gru.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hidden", [513, 1024])
+def test_launch_plan_refuses_hidden_sizes_above_512(hidden):
+    with pytest.raises(ValueError, match="serves hidden sizes up to 512"):
+        gru.launch_plan(4, hidden)
+    params = {"wx": torch.zeros(3, 3 * hidden), "wh": torch.zeros(hidden, 3 * hidden),
+              "bx": torch.zeros(3 * hidden), "bh": torch.zeros(3 * hidden)}
+    with pytest.raises(ValueError, match="too large for the GRU kernel"):
+        gru.gru_apply(params, torch.zeros(2, 5, 3))
+
+
+@pytest.mark.parametrize("hidden", [300, 512])
+def test_large_hidden_plain_version_matches_jax_scan(hidden):
+    # On the CPU the wrapper runs the plain loop at any size the kernel
+    # serves; it equals the JAX package's scan GRU there.
+    rng = np.random.default_rng(hidden)
+    params = {
+        "wx": (rng.standard_normal((C, 3 * hidden)) * np.sqrt(2.0 / C)).astype(np.float32),
+        "wh": (rng.standard_normal((hidden, 3 * hidden)) * np.sqrt(2.0 / hidden)).astype(np.float32),
+        "bx": (rng.standard_normal(3 * hidden) * 0.1).astype(np.float32),
+        "bh": (rng.standard_normal(3 * hidden) * 0.1).astype(np.float32),
+    }
+    x = rng.standard_normal((2, 5, C)).astype(np.float32)
+    want = np.asarray(jnn.gru_apply(jax.tree.map(jnp.asarray, params), jnp.asarray(x)))
+    got = gru.gru_apply(_torch(params), torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL, rtol=0)

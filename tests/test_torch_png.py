@@ -156,8 +156,11 @@ def test_non_png_bodies(monkeypatch):
         png.decode_png(bmp)
     buf16 = io.BytesIO()
     Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(buf16, format="PNG")
-    with pytest.raises(ImageSourceError, match="bit depth 16"):
-        png.decode_png(buf16.getvalue())
+    np.testing.assert_array_equal(png.decode_image(buf16.getvalue()), _pillow(buf16.getvalue(), "RGB"))
+    bad_depth = bytearray(good)
+    bad_depth[24] = 4  # IHDR's bit depth: RGB has no 4-bit kind
+    with pytest.raises(ImageSourceError, match="bit depth 4"):
+        png.decode_png(bytes(bad_depth))
     # Without Pillow: PNG still decodes, anything else says what is missing.
     monkeypatch.setitem(sys.modules, "PIL", None)
     np.testing.assert_array_equal(png.decode_image(good), rgb)
@@ -170,3 +173,87 @@ def test_sub_filter_runs_per_channel_modulo_256():
     img = np.full((2, 300, 3), 200, np.uint8)
     img[:, ::7] = 13
     np.testing.assert_array_equal(png.decode_png(_png_bytes(img, 1)), img)
+
+
+# Every colour type at every bit depth, plain and Adam7-interlaced, with and
+# without tRNS, written here (Pillow writes neither interlaced nor most of
+# these kinds) and held against Pillow's Image.open(...).convert("RGB").
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+KINDS = [(0, d) for d in (1, 2, 4, 8, 16)] + [(3, d) for d in (1, 2, 4, 8)] + [(c, d) for c in (2, 4, 6) for d in (8, 16)]
+
+
+def _pack(samples, depth):
+    """[h, n] sample values -> [h, stride] bytes of one pass."""
+    h = samples.shape[0]
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return samples.astype(np.uint8)
+    per = 8 // depth
+    pad = (-samples.shape[1]) % per
+    s = np.concatenate([samples, np.zeros((h, pad), samples.dtype)], 1).reshape(h, -1, per).astype(np.uint8)
+    return (s << np.arange(8 - depth, -1, -depth, dtype=np.uint8)).sum(-1, dtype=np.uint8)
+
+
+def _filter_rows(rows, bpp, first_type):
+    """Filter each row with the next of the five types in turn."""
+    out, prev = bytearray(), [0] * rows.shape[1]
+    for i, row in enumerate(rows.astype(int).tolist()):
+        ftype = (first_type + i) % 5
+        out.append(ftype)
+        for x, v in enumerate(row):
+            a = row[x - bpp] if x >= bpp else 0
+            b = prev[x]
+            c = prev[x - bpp] if x >= bpp else 0
+            out.append((v - (0, a, b, (a + b) // 2, _paeth(a, b, c))[ftype]) & 0xFF)
+        prev = row
+    return bytes(out)
+
+
+def _kind_png(ctype, depth, interlace, hw, trns=False, seed=0):
+    ch = png._CHANNELS[ctype]
+    rng = np.random.default_rng(seed)
+    top = (1 << depth) if ctype != 3 else min(1 << depth, 7)
+    samples = rng.integers(0, top, size=(*hw, ch)).astype(np.int64)
+    if depth == 16:  # values at the clip and high-byte edges
+        samples.reshape(-1)[:6] = [0, 100, 255, 256, 0xFF00, 65535]
+    h, w = hw
+    raw = b""
+    for i, (y0, x0, dy, dx) in enumerate(ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            raw += _filter_rows(_pack(sub.reshape(sub.shape[0], -1), depth), max(1, ch * depth // 8), i)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if ctype == 3:
+        out += chunk(b"PLTE", rng.integers(0, 256, size=(7, 3), dtype=np.uint8).tobytes())
+    if trns:
+        # A transparent grey or RGB value (the first pixel's), or palette alphas.
+        body = bytes([0, 128, 255]) if ctype == 3 else struct.pack(f">{ch}H", *map(int, samples[0, 0]))
+        out += chunk(b"tRNS", body)
+    return out + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+@pytest.mark.parametrize("hw", [(13, 11), (3, 2)], ids=["13x11", "3x2"])
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+@pytest.mark.parametrize("ctype, depth", KINDS, ids=[f"type{c}-{d}bit" for c, d in KINDS])
+def test_decode_image_of_every_kind_equals_pillows_rgb(ctype, depth, interlace, hw):
+    data = _kind_png(ctype, depth, interlace, hw, seed=depth + ctype)
+    np.testing.assert_array_equal(png.decode_image(data), _pillow(data, "RGB"))
+
+
+@pytest.mark.parametrize("ctype, depth", [(0, 8), (0, 16), (2, 8), (2, 16), (3, 4)])
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+def test_trns_changes_no_sample(ctype, depth, interlace):
+    data = _kind_png(ctype, depth, interlace, (9, 10), trns=True, seed=3)
+    np.testing.assert_array_equal(png.decode_image(data), _pillow(data, "RGB"))
+
+
+def test_sixteen_bit_rules_as_pillow_reads_them():
+    grey = _kind_png(0, 16, 0, (1, 6))
+    np.testing.assert_array_equal(png.decode_png(grey)[0, :, 0], [0, 100, 255, 255, 255, 255])
+    rgb = _kind_png(2, 16, 0, (1, 2))  # the six values over two RGB pixels
+    np.testing.assert_array_equal(png.decode_png(rgb)[0].reshape(-1), [0, 0, 0, 1, 255, 255])
