@@ -115,6 +115,32 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
      checkpoint saved and restored into a fresh state steps as the state it
      came from. Last, ``python -m ocrs_tpu_torch.train.demo`` (150 steps,
      hidden 192) in-process: its loss curve and held-out decodes.
+  14. train_driver: the trainer (``ocrs_tpu_torch.train.train_models``) on
+     the card. First a line of what this machine offers the renderer
+     (Pillow, fontTools, matplotlib, pygame, each entry of the font bank);
+     where it can draw, the first lines of the committed recognition cache
+     are drawn again and must equal it. Then ``train_recognition`` and
+     ``train_detection``, their arguments made by the trainer's own parser,
+     from the committed caches of ``test-data/train``: ConvCTC warm-started
+     from the shipped weights (batch 64, width 768, 40 steps), the CRNN at
+     hidden 192 from random weights (10 steps) and the U-Net warm-started
+     (batch 16, 30 steps); the recognizers validate on the held-out cache
+     through ``val_batch``. Per run: the loss falls from step 1 to the last,
+     ms a step (fenced, median after the first 3) and the host's share,
+     peak memory, validation CER, GRU launches (zeroed just before, read
+     just after: 2 a CRNN step and validation, none for ConvCTC). Each
+     exported file has the keys, shapes and dtype of its kind (the shipped
+     file's; the CRNN's are the port's CRNN at hidden 192), loads, and an
+     engine on the card runs it over the text page; the warm-started ConvCTC
+     reads that page as the shipped weights read it, and the fine-tuned
+     U-Net still finds its lines.
+  15. convert: the PyTorch twin of the CRNN (``ocrs_tpu_torch.testing``,
+     hidden 192, 97 classes, seed 0) converted by
+     ``convert_torch_state_dict`` into the port's CRNN; in float32 on the
+     card the engine runs it over the text page (two GRU launches, counted)
+     and its log-probs on that line batch are held against the twin's own
+     forward (cuDNN's GRU, a yardstick only) within a stated bound, with
+     the same greedy text.
 
 Then it prints the kernels line, the card's name and power limit, and, as
 the last line, ``{"ok": true, "device": {...}}``. A failed check exits with
@@ -1023,7 +1049,7 @@ def train_pages(rng, n, hw=(800, 608)):
 
     from ocrs_tpu_torch.engine import DEFAULT_ALPHABET
     from ocrs_tpu_torch.train import pixelfont
-    from ocrs_tpu_torch.train.demo import random_text
+    from ocrs_tpu_torch.train.data import random_text
 
     pages = np.full((n, 1, *hw), 255, np.uint8)
     targets = np.zeros((n, 1, *hw), np.uint8)
@@ -1294,6 +1320,241 @@ def train_phase(dev):
     check(all(np.isfinite(v) for _, v in result["loss_curve"]), "train: demo losses are finite")
     report["seconds"] = time.perf_counter() - t_phase
     return report, train_launches, large
+
+
+# The trainer (python -m ocrs_tpu_torch.train.train_models) on the card, from
+# the committed caches (test-data/train/): the card's machine may have no
+# Pillow and no faces, and a cache draws nothing.
+TRAIN_CACHES = REPO / "test-data" / "train"
+REC_CACHE, VAL_CACHE, DET_CACHE = "rec_64_768_s0.npz", "rec_32_768_s7919.npz", "det_8_s0.npz"
+# ConvCTC warm-started from the shipped weights at a fine-tuning rate (the
+# text page must still read as the shipped weights read it), the CRNN at
+# full width from random weights, and the U-Net warm-started, both at the
+# trainer's default rate (the U-Net's batches of 16 of the 8 cached pages
+# differ in loss by up to 3x, so it needs the larger rate and 30 steps to
+# fall past that spread); each recognizer validates at its end.
+TRAINER_RUNS = ("convctc", "crnn", "unet")
+
+
+def trainer_args(name):
+    """The trainer's arguments of run `name` (output path not included)."""
+    rec, det = str(TRAIN_CACHES / REC_CACHE), str(TRAIN_CACHES / DET_CACHE)
+    weights = REPO / "weights"
+    return {
+        "convctc": ["recognition", "--arch", "convctc", "--init-from", str(weights / "text-recognition.npz"),
+                    "--batch", "64", "--width", "768", "--steps", "40", "--val-every", "20", "--lr", "1e-4",
+                    "--cache", rec],
+        "crnn": ["recognition", "--arch", "crnn", "--hidden", "192", "--batch", "64", "--width", "768",
+                 "--steps", "10", "--val-every", "10", "--cache", rec],
+        "unet": ["detection", "--init-from", str(weights / "text-detection.npz"), "--batch", "16", "--steps", "30",
+                 "--cache", det],
+    }[name]
+
+
+# Steps left out of a run's median step time (the first calls pick cuDNN's
+# and cuBLAS's plans).
+TRAINER_WARMUP = 3
+# Lines of the recognition cache drawn again where Pillow and a face exist.
+REDRAWN_LINES = 4
+# The converted CRNN twin in float32 on the card (the GRU kernel; 3xTF32
+# products) against the twin's own forward (cuDNN's GRU, TF32 off): the
+# summation orders differ through two BiGRU layers of hidden 192.
+CONVERT_HIDDEN, CONVERT_LOGPROB_ATOL = 192, 1e-3
+
+
+def rasterizers():
+    """What this machine offers the renderer: Pillow, fontTools,
+    matplotlib, pygame, and each entry of the font bank beside its file."""
+    import importlib.util
+
+    from ocrs_tpu_torch.train import render
+
+    report = {name: importlib.util.find_spec(name) is not None for name in ("PIL", "fontTools", "matplotlib", "pygame")}
+    report["font_candidates"] = [
+        {"candidate": cand, "path": path, "exists": bool(path and os.path.exists(path))}
+        for cand, path in render.candidate_paths()
+    ]
+    try:
+        report["font_bank"] = list(render.font_paths())
+    except render.RenderUnavailable as e:
+        report["font_bank"] = []
+        report["font_bank_error"] = str(e)
+    report["can_draw"] = report["PIL"] and bool(report["font_bank"])
+    return report
+
+
+def weight_tree_report(path, like):
+    """Keys and shapes of the weight file `path` against the tree `like`
+    (a flat {key: array} mapping)."""
+    from ocrs_tpu_torch.models.weights import load_flat
+
+    flat, meta = load_flat(path)
+    shapes = {k: tuple(v.shape) for k, v in flat.items()}
+    want = {k: tuple(v.shape) for k, v in like.items()}
+    return shapes == want and all(v.dtype.name == "float32" for v in flat.values()), meta
+
+
+def trainer_phase(dev, det, conv, text_input, shipped_text):
+    """The trainer on the card from the committed caches; returns (report,
+    GRU launches of its runs)."""
+    import numpy as np
+    import torch
+
+    from ocrs_tpu_torch.engine import OcrEngine, OcrEngineParams
+    from ocrs_tpu_torch.models import convert
+    from ocrs_tpu_torch.models.recognition_net import RecognitionModel
+    from ocrs_tpu_torch.models.weights import load_detection_model, load_flat, load_recognition_model, params_to_jax
+    from ocrs_tpu_torch.ops import gru
+    from ocrs_tpu_torch.train import train_models
+    from ocrs_tpu_torch.train.data import RecognitionDataset
+
+    t_phase = time.perf_counter()
+    raster = rasterizers()
+    emit({"phase": "train_driver_rasterizers", **raster})
+    report, launches_total = {"rasterizers_can_draw": raster["can_draw"]}, 0
+    missing = [n for n in (REC_CACHE, VAL_CACHE, DET_CACHE) if not (TRAIN_CACHES / n).exists()]
+    check(not missing, f"train_driver: committed caches present ({missing} missing)")
+    if missing:
+        return report, 0
+    val_ds = RecognitionDataset(0, cache_path=TRAIN_CACHES / VAL_CACHE)
+    val_batch = train_models.validation_batch(val_ds)
+
+    # Where this machine can draw, the renderer remakes the cache's first lines.
+    if raster["can_draw"]:
+        drawn = RecognitionDataset(REDRAWN_LINES, width=768, seed=0)
+        cached = RecognitionDataset(0, cache_path=TRAIN_CACHES / REC_CACHE)
+        same = all(
+            np.array_equal(drawn.get(i)[0], cached.get(i)[0]) and drawn.get(i)[1] == cached.get(i)[1]
+            for i in range(REDRAWN_LINES)
+        )
+        check(same, f"train_driver: the renderer on this machine remakes the cache's first {REDRAWN_LINES} lines")
+        report["redrawn_lines_equal_cache"] = same
+    else:
+        report["redrawn_lines_equal_cache"] = "not drawn: " + ("no face of the font bank" if raster["PIL"] else "no Pillow") + " here"
+
+    out_dir = REPO / "build" / "chip_smoke_trainer"
+    shipped_rec = load_flat(REPO / "weights" / "text-recognition.npz")[0]
+    shipped_det = load_flat(REPO / "weights" / "text-detection.npz")[0]
+    crnn_like = dict(convert._flatten_with_paths(
+        params_to_jax(RecognitionModel.create(seed=0, hidden=CONVERT_HIDDEN, arch="crnn").net.state_dict())))
+    for name in TRAINER_RUNS:
+        argv = trainer_args(name)
+        args = train_models.parse_args([*argv, "-o", str(out_dir / f"{name}.npz")])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_gru_counts()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            if args.model == "recognition":
+                record = train_models.train_recognition(args, val_batch=val_batch)
+            else:
+                record = train_models.train_detection(args)
+        torch.cuda.synchronize()
+        launches = gru.bigru_sequence.launches + gru.gru_sequence.launches
+        launches_total += launches
+        losses = record["losses"]
+        steps_ms = [1e3 * t for t in record["step_seconds"]]
+        run = {
+            "args": argv,
+            "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+            "step_ms": statistics.median(steps_ms[TRAINER_WARMUP:]), "step_ms_all": steps_ms,
+            "batch_ms_median": 1e3 * statistics.median(record["batch_seconds"][TRAINER_WARMUP:]),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+            "gru_launches": launches,
+            "printed": printed.getvalue().splitlines(),
+        }
+        check(all(np.isfinite(losses)), f"train_driver {name}: finite losses")
+        check(losses[-1] < losses[0], f"train_driver {name}: the loss falls from step 1 to {len(losses)} ({losses[0]} -> {losses[-1]})")
+        path = Path(record["output"])
+        if args.model == "recognition":
+            validations = len(record["val_cer"])
+            run["val_cer"] = record["val_cer"]
+            run["validation"] = f"{VAL_CACHE} through val_batch ({record['val_size']} lines)"
+            per_step = 2 if args.arch == "crnn" else 0
+            want = per_step * (args.steps + validations)
+            check(launches == want, f"train_driver {name}: {per_step} GRU launches a step and a validation ({launches}, want {want})")
+            ok, meta = weight_tree_report(path, shipped_rec if args.arch == "convctc" else crnn_like)
+            check(ok, f"train_driver {name}: the exported file has the keys, shapes and dtype of its kind")
+            check(meta.get("kind") == "recognition" and meta.get("arch") == args.arch and meta.get("steps") == args.steps,
+                  f"train_driver {name}: the exported meta ({meta})")
+            model = load_recognition_model(path)
+            engine = OcrEngine(OcrEngineParams(detection_model=det, recognition_model=model), device="cuda")
+        else:
+            check(launches == 0, f"train_driver {name}: no GRU launch ({launches})")
+            ok, meta = weight_tree_report(path, shipped_det)
+            check(ok and meta.get("kind") == "detection" and meta.get("input_hw") == [800, 608],
+                  f"train_driver {name}: the exported file has the shipped detector's keys, shapes, dtype and meta")
+            engine = OcrEngine(OcrEngineParams(detection_model=load_detection_model(path), recognition_model=conv), device="cuda")
+        text = engine.get_text(text_input)
+        run.update(exported=path.name, exported_bytes=path.stat().st_size, meta=meta, text_page=text)
+        check(isinstance(text, str), f"train_driver {name}: an engine on the card runs the exported file")
+        if name == "unet":
+            check(text.strip() != "", f"train_driver unet: the fine-tuned detector still finds the text page's lines ({text!r})")
+        if name == "convctc":
+            check(text == shipped_text, f"train_driver convctc: the warm-started ConvCTC reads the text page as the "
+                                        f"shipped weights do ({text!r} / {shipped_text!r})")
+        report[name] = run
+        del record, engine
+        torch.cuda.empty_cache()
+    report["gru_launches"] = launches_total
+    report["seconds"] = time.perf_counter() - t_phase
+    return report, launches_total
+
+
+def convert_phase(dev, det, text_input):
+    """The PyTorch twin of the CRNN (hidden 192, 97 classes, seed 0)
+    converted into the port's CRNN; both on the card in float32 on the text
+    page's line batch. Returns (report, GRU launches of the converted
+    model's run)."""
+    import numpy as np
+    import torch
+
+    from ocrs_tpu_torch.engine import DEFAULT_ALPHABET, OcrEngine, OcrEngineParams
+    from ocrs_tpu_torch.models import convert
+    from ocrs_tpu_torch.ops import gru
+    from ocrs_tpu_torch.ops.ctc import collapse_greedy_batch
+    from ocrs_tpu_torch.testing import torch_crnn_twin
+
+    t_phase = time.perf_counter()
+    twin = torch_crnn_twin(CONVERT_HIDDEN, 97, seed=0)
+    state = {k: v.numpy() for k, v in twin.state_dict().items()}
+    params = convert.convert_torch_state_dict(state, convert.target_params("recognition", "crnn", 97, CONVERT_HIDDEN))
+    model = convert.load_converted_model(params, "recognition", arch="crnn")
+    model.dtype = torch.float32
+    engine = OcrEngine(OcrEngineParams(detection_model=det, recognition_model=model), device="cuda")
+    twin = twin.to(dev)
+    captured = []
+    hook = model.net.register_forward_hook(lambda m, inp, out: captured.append((inp[0], out.detach())))
+    reset_gru_counts()
+    text = engine.get_text(text_input)
+    torch.cuda.synchronize()
+    launches = gru.bigru_sequence.launches + gru.gru_sequence.launches
+    hook.remove()
+    check(len(captured) == 1 and launches == 2, f"convert: one line batch, two GRU launches ({len(captured)}, {launches})")
+    x, lp = captured[0]
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        want = twin(x.float())
+    torch.backends.cudnn.allow_tf32 = True
+    err = float((lp - want).abs().max())
+
+    def greedy(logprobs):
+        labels = logprobs.argmax(dim=-1).T.cpu().numpy()
+        return ["".join(DEFAULT_ALPHABET[s.label - 1] for s in steps) for steps in collapse_greedy_batch(labels)]
+
+    got_text, want_text = greedy(lp), greedy(want)
+    check(tuple(lp.shape) == tuple(want.shape) and bool(torch.isfinite(lp).all()), "convert: finite log-probs of the twin's shape")
+    check(err <= CONVERT_LOGPROB_ATOL, f"convert: max |log-prob diff| against the twin {err} <= {CONVERT_LOGPROB_ATOL}")
+    check(got_text == want_text, f"convert: the converted model's greedy text is the twin's ({got_text} / {want_text})")
+    report = {
+        "twin": f"ocrs_tpu_torch.testing.TorchCRNN(hidden={CONVERT_HIDDEN}, n_classes=97), seed 0, torch.nn.GRU (cuDNN)",
+        "line_batch": list(x.shape), "logprobs": list(lp.shape), "max_abs_logprob_diff": err,
+        "atol": CONVERT_LOGPROB_ATOL, "greedy_equal": got_text == want_text, "greedy_text": got_text,
+        "frames_differing": int((lp.argmax(-1) != want.argmax(-1)).sum()), "engine_text": text,
+        "gru_launches": launches, "seconds": time.perf_counter() - t_phase,
+    }
+    del twin, engine, model
+    return report, launches
 
 
 def main() -> int:
@@ -2069,6 +2330,14 @@ def main() -> int:
     train_report, train_launches, large = train_phase(dev)
     emit({"phase": "train", "card": smi, **train_report})
 
+    # 14. The trainer from the committed caches ---------------------------------------
+    trainer_report, trainer_launches = trainer_phase(dev, det, conv, inputs["text"], d_texts["text"])
+    emit({"phase": "train_driver", "card": smi, **trainer_report})
+
+    # 15. A PyTorch CRNN converted into the port ---------------------------------------
+    convert_report, convert_launches = convert_phase(dev, det, inputs["text"])
+    emit({"phase": "convert", **convert_report})
+
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
@@ -2080,9 +2349,11 @@ def main() -> int:
                     "route": "cuda",
                     "source": "ocrs_tpu_torch/csrc/gru_seq.cu",
                     "replaces": "ocrs_tpu/ops/gru_pallas.py:41",
-                    "launches": launches + pipe_launches + sum(serve_launches.values()) + train_launches,
+                    "launches": launches + pipe_launches + sum(serve_launches.values()) + train_launches
+                    + trainer_launches + convert_launches,
                     "launches_by_path": {
                         "engine": launches, "pipeline_crnn": pipe_launches, **serve_launches, "train": train_launches,
+                        "train_driver": trainer_launches, "convert": convert_launches,
                     },
                     "launch_sites": "the caller's thread (engine, pipeline), the batching service's worker "
                     "thread (serve_worker), the HTTP server's handler threads (serve_handlers)",

@@ -11,8 +11,8 @@ otherwise; the GRU runs in the CUDA kernel there.
 The JAX demo draws its lines with Pillow's TrueType renderer
 (``ocrs_tpu.train.data``); the card's machine has no Pillow and no fonts, so
 this one draws them in the bitmap face of :mod:`.pixelfont`
-(``render_pixel_line``, a per-line letterform draw), with texts drawn by the
-law of ``ocrs_tpu.train.data.random_text`` from a seeded numpy generator.
+(``render_pixel_line``, a per-line letterform draw), with texts drawn by
+:func:`.data.random_text` from a seeded numpy generator.
 That is a different data source, not a different model or step: the
 recognizer, the optimizer (``adamw(lr)``, optax's defaults) and the step are
 the JAX demo's.
@@ -31,24 +31,12 @@ from ..models.recognition_net import INPUT_HEIGHT, RecognitionModel
 from ..ops.ctc import collapse_greedy_batch
 from ..preprocess import BLACK_VALUE
 from . import pixelfont
+from .data import labels_for, random_text
 from .optim import adamw
 from .train import init_recognition_state, make_recognition_train_step
 
 #: Held-out lines decoded at the end (the JAX demo's).
 HELD_OUT = ("hello", "TPU 42", "ocrs")
-
-
-def random_text(rng: np.random.Generator, alphabet: str, min_len: int = 3, max_len: int = 18) -> str:
-    """``ocrs_tpu.train.data.random_text``'s law: 3-18 characters, letters
-    and digits of `alphabet` with four spaces in the pool."""
-    n = int(rng.integers(min_len, max_len + 1))
-    pool = [c for c in alphabet if c.isalnum()] + [" "] * 4
-    return "".join(rng.choice(pool) for _ in range(n)).strip() or "a"
-
-
-def labels_for(text: str, alphabet: str = DEFAULT_ALPHABET) -> list[int]:
-    """CTC labels: alphabet index + 1 (0 is blank); unknown characters dropped."""
-    return [alphabet.index(c) + 1 for c in text if c in alphabet]
 
 
 def draw_line(text: str, width: int, rng: np.random.Generator | None = None, scale: float | None = None) -> np.ndarray:

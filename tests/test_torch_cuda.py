@@ -483,3 +483,28 @@ def test_crnn_train_step_on_card_launches_the_kernel_and_lowers_the_loss():
     assert gru.bigru_sequence.launches == before + 4
     assert state.model.net.gru1.fwd.wh.grad is not None and float(state.model.net.gru1.fwd.wh.grad.abs().sum()) > 0
     assert float(loss2) < float(loss1)
+
+
+@pytest.mark.cuda
+def test_trainer_step_on_card_from_the_committed_caches(tmp_path):
+    # What the card's machine can train from: the committed caches (no
+    # Pillow), one CRNN step and a validation on the held-out cache.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from pathlib import Path
+
+    from ocrs_tpu_torch.models.weights import load_recognition_model
+    from ocrs_tpu_torch.train import train_models
+    from ocrs_tpu_torch.train.data import RecognitionDataset
+
+    caches = Path(__file__).resolve().parent.parent / "test-data" / "train"
+    val = train_models.validation_batch(RecognitionDataset(0, cache_path=caches / "rec_32_768_s7919.npz"))
+    args = train_models.parse_args(["recognition", "--arch", "crnn", "--hidden", "64", "--steps", "1", "--batch", "8",
+                                    "--cache", str(caches / "rec_64_768_s0.npz"), "-o", str(tmp_path / "crnn.npz")])
+    before = gru.bigru_sequence.launches
+    record = train_models.train_recognition(args, val_batch=val)
+    # Two BiGRU launches for the step's forward, two for the validation's.
+    assert gru.bigru_sequence.launches == before + 4
+    assert record["state"].device.type == "cuda" and len(record["losses"]) == 1
+    assert record["val_cer"][0][0] == 1 and record["val_size"] == 32
+    assert load_recognition_model(tmp_path / "crnn.npz").arch == "crnn"

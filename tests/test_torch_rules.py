@@ -174,3 +174,81 @@ def test_entry_point_modules_import_neither_jax_nor_pillow(module):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+TRAINING_DATA_MODULES = [
+    "train.render", "train.data", "train.hiertext", "train.train_models", "train.demo", "models.convert", "testing",
+]
+
+
+@pytest.fixture(scope="module")
+def imported_without_pillow():
+    """One process with Pillow blocked imports each module in turn: {module:
+    "ok" or its error}, and the JAX modules loaded after all of them (none
+    of them may load one, so one process answers for each)."""
+    code = (
+        "import sys, importlib, json\n"
+        "sys.modules['PIL'] = None\n"
+        "result = {}\n"
+        f"for m in {TRAINING_DATA_MODULES!r}:\n"
+        "    try:\n"
+        "        importlib.import_module('ocrs_tpu_torch.' + m)\n"
+        "        result[m] = 'ok'\n"
+        "    except Exception as e:\n"
+        "        result[m] = repr(e)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ocrs_tpu')]\n"
+        "print(json.dumps({'modules': result, 'jax': bad}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_clean_env(), capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    return __import__("json").loads(out.stdout)
+
+
+@pytest.mark.parametrize("module", TRAINING_DATA_MODULES)
+def test_training_data_modules_import_without_pillow_jax_or_the_jax_package(module, imported_without_pillow):
+    assert imported_without_pillow["modules"][module] == "ok"
+    assert imported_without_pillow["jax"] == []
+
+
+def test_without_pillow_drawing_raises_and_the_committed_caches_still_train():
+    # Drawing names Pillow; loading a committed cache draws nothing, so its
+    # batches come as they do with Pillow.
+    code = (
+        "import sys\n"
+        "sys.modules['PIL'] = None\n"
+        "import numpy as np\n"
+        "from ocrs_tpu_torch.train import data, render\n"
+        "for call in (lambda: render.render_recognition_sample(np.random.default_rng(0), 256),\n"
+        "             lambda: render.render_native_page(np.random.default_rng(0), (100, 100)),\n"
+        "             lambda: data.render_line('x'), lambda: next(data.recognition_batches(1))):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except render.RenderUnavailable as e:\n"
+        "        print('Pillow' in str(e))\n"
+        "ds = data.RecognitionDataset(0, cache_path='test-data/train/rec_64_768_s0.npz')\n"
+        "det = data.DetectionDataset(0, cache_path='test-data/train/det_8_s0.npz')\n"
+        "imgs, labels, lengths = next(ds.batches(4, seed=1, as_u8=True))\n"
+        "pages, masks = next(det.batches(2, seed=1))\n"
+        "print(len(ds), len(det), imgs.shape, int(lengths.min()) > 0, pages.shape, float(masks.max()))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_clean_env(), capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == ["True"] * 4 + ["64 8 (4, 1, 64, 768) True (2, 1, 800, 608) 1.0"]
+
+
+def test_without_a_face_of_the_bank_drawing_raises(monkeypatch):
+    from ocrs_tpu_torch.train import render
+
+    monkeypatch.setattr(render, "candidate_paths", lambda: [(c, None) for c in render._FONT_CANDIDATES])
+    render.font_paths.cache_clear()
+    try:
+        with pytest.raises(render.RenderUnavailable, match="font bank"):
+            render.font_paths()
+        with pytest.raises(render.RenderUnavailable, match="font bank"):
+            render.sample_style(__import__("numpy").random.default_rng(0))
+    finally:
+        render.font_paths.cache_clear()
