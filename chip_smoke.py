@@ -141,6 +141,44 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
      and its log-probs on that line batch are held against the twin's own
      forward (cuDNN's GRU, a yardstick only) within a stated bound, with
      the same greedy text.
+  16. parallel: more than one device, on the one card. ``PagePipeline``
+     with the shipped detector and ConvCTC on the 16 full-size pages under
+     ``make_data_mesh()`` (one entry) and ``make_data_mesh(devices=["cuda:0",
+     "cuda:0"])`` (two shards, each on its long-lived worker thread and its
+     own CUDA stream): under one entry each page reads as the unsharded
+     ``process`` reads it; under two, each shard's pages read exactly as the
+     unsharded ``process`` reads that half of the group (the whole group in
+     one call batches otherwise: its differences, crops moved and frames
+     flipped are reported, not checked); ``process_stream`` over three
+     groups under two shards equals three ``process`` calls; the CRNN at
+     hidden 192 through two shards launches the GRU kernel on both shard
+     threads (counted by thread, zeroed just before, read just after), each
+     shard's own bf16 output of ``gru1`` is the plain version's on the
+     operands it made (within ``GRU_ATOL`` and a bf16 spacing) and the
+     kernel on those operands the plain version's within ``GRU_ATOL``, and
+     the plain GRU reads close texts; pages per second of
+     ``process_stream`` under one shard and two, and fenced ms of the group
+     whole, in halves one after the other, and on two shards. Then
+     ``dryrun_multichip(1)``; the CRNN (hidden 192, 97 classes) at the
+     train phase's batch, two AdamW steps in bf16 and one in float32 (TF32
+     off), over a one-rank NCCL group in this process (DDP) and over two
+     spawned gloo ranks sharing the card (data 2 x model 1; NCCL refuses
+     two ranks on one device), and the model split (data 1 x model 2 at
+     n_classes 24, hidden 64; gloo gathers CUDA tensors), each against the
+     one-process steps: bf16 by the bounds of
+     tests/test_torch_parallel_train.py, half of each leaf's entries clear
+     of noise held at least; float32 by the loss and every leaf's gradient
+     within ``PARALLEL_F32_RTOL`` by relative norm (the half batch's
+     gradients, measured, lie more than ten times outside); with ms a step,
+     2 GRU launches a step on every rank, the kernel against the plain
+     version on rank 0's own input to ``gru1``, and the spawned ranks
+     loading the kernel the parent built (no ``nvcc``). Last, ``torchrun
+     --nproc-per-node=1 -m ocrs_tpu_torch.train.train_models`` in a
+     subprocess: ConvCTC warm-started from the shipped weights, 10 steps on
+     the committed cache; the export has the shipped file's keys, shapes and
+     dtype, its mean CTC loss over that cache is below the shipped
+     weights', and an engine on the card reads the text page with it as the
+     shipped weights read it.
 
 Then it prints the kernels line, the card's name and power limit, and, as
 the last line, ``{"ok": true, "device": {...}}``. A failed check exits with
@@ -152,12 +190,15 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import datetime
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -1557,6 +1598,416 @@ def convert_phase(dev, det, text_input):
     return report, launches
 
 
+# The parallel phase: more than one device, on the one card. The pipeline
+# sharded over a mesh of one entry and of two entries on the same card
+# (each shard its own thread and CUDA stream); the train steps over process
+# groups: one NCCL rank, and two gloo ranks sharing the card (NCCL refuses
+# two ranks on one device); the trainer under torchrun.
+# Groups of process_stream timed per mesh: warm-up, then timed.
+PARALLEL_WARM, PARALLEL_TIMED = 1, 4
+# The model split at the JAX package's even shapes (dryrun_multichip's): a
+# 97-class head does not split in two, in either package.
+SPLIT_CLASSES, SPLIT_HIDDEN = 24, 64
+# The model split runs under gloo on the card: gloo takes its all-gather of
+# CUDA tensors (float32 and bf16), as tools/torch_parallel_probe.py found on
+# the card (PyTorch 2.11, H100), though PyTorch's table of collectives lists
+# no all-gather on GPU tensors for gloo (see PERF.md).
+# The sharded steps against the one-process step, both bf16 on the card:
+# tests/test_torch_train_step.py's bounds (loss 1e-2 relative; parameters
+# within 2 * the summed rates + 1e-6).
+PARALLEL_LR, PARALLEL_STEPS = 1e-3, 2
+# One float32 step (TF32 off) of each sharded run against one process's:
+# the loss, and every leaf's gathered gradient by the relative norm of the
+# whole leaf. Both sides sum in float32 in other orders (a batch split in
+# two, cuDNN free to pick other algorithms at the half batch); the CPU tests
+# hold 1e-5 at a batch of 4. A gradient of half the batch, or one not
+# reduced over the model group, is far outside: the phase measures the
+# half-batch gradient's distance and requires it above ten times this.
+PARALLEL_F32_RTOL = 1e-3
+# A shard thread's bf16 GRU output against the plain version's, rounded to
+# bf16: GRU_ATOL and one bf16 spacing below 1 (|h| < 1), where the two
+# round to neighbours.
+SHARD_GRU_BF16_ATOL = GRU_ATOL + 2.0**-8
+# The trainer under torchrun: ConvCTC warm-started from the shipped weights
+# at the train_driver phase's fine-tuning rate, 10 steps.
+TORCHRUN_STEPS = 10
+
+
+def line_logprobs(captured):
+    """{line key: its frames' log-probs [T, C]} of captured recognizer
+    batches (crops [N, 1, 64, W], log-probs [W / 4, N, C]). A line is keyed
+    by its crop up to its last column that is not padding (BLACK_VALUE),
+    which is the same in any batch; padding rows repeat a line and key to
+    it."""
+    from ocrs_tpu_torch.preprocess import BLACK_VALUE
+
+    out = {}
+    for x, lp in captured:
+        holds = (x != BLACK_VALUE).flatten(1, 2).any(dim=1).cpu()  # [N, W]: columns of the line
+        for i in range(x.shape[0]):
+            cols = holds[i].nonzero()
+            if cols.numel() == 0:
+                continue
+            last = int(cols[-1])
+            key = x[i, ..., : last + 1].float().cpu().numpy().tobytes()
+            out[key] = lp[: -(-(last + 1) // 4), i].float().cpu()
+    return out
+
+
+def text_edits(a, b):
+    """Characters inserted, deleted or replaced between texts `a` and `b`."""
+    import difflib
+
+    ops = difflib.SequenceMatcher(None, a, b, autojunk=False).get_opcodes()
+    return sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in ops if tag != "equal")
+
+
+def bf16_step_report(got, want, lr_total, what):
+    """A sharded run's losses and whole parameters against the one-process
+    run's by tests/test_torch_parallel_train.py's bf16 rule: the step-1 loss
+    within 1e-2, the parameters within 2 * the summed rates + 1e-6, and,
+    where the one-process run's gradients of both updates are clear of bf16
+    noise (above a tenth of their leaf's root mean square) and agree in
+    sign, and the sharded run's are within half of them, each update is
+    held: moved by the one-process run more than a quarter of the rates, it
+    takes the one-process update's sign and lies within half the rates of
+    it (a zero, doubled or flipped update fails). Every leaf has entries
+    clear of noise, and at least half of them are held: how many are clear
+    of noise is the one-process gradient's own structure (a tenth or fewer
+    of a GRU's input projection at small shapes), so the floor is a share
+    of those. Returns the worst parameter difference and the least share
+    of a leaf's clear entries held."""
+    import numpy as np
+
+    check(abs(got["losses"][0] - want["losses"][0]) <= 1e-2 * abs(want["losses"][0]),
+          f"parallel {what}: step-1 loss {got['losses'][0]} within 1e-2 of one process's {want['losses'][0]}")
+    check(got["params"].keys() == want["params"].keys(), f"parallel {what}: the gathered parameters' keys")
+    worst = max(float(np.abs(got["params"][k] - want["params"][k]).max()) for k in want["params"])
+    check(worst <= 2 * lr_total + 1e-6, f"parallel {what}: parameters within {2 * lr_total + 1e-6} ({worst})")
+    p0, counts, bad = want["p0"], {}, []
+    for k in want["params"]:
+        ws, gs = [g[k] for g in want["grads"]], [g[k] for g in got["grads"]]
+        clear = np.sign(ws[0]) == np.sign(ws[-1])
+        for w in ws:
+            clear &= np.abs(w) > 0.1 * np.sqrt(np.mean(np.square(w, dtype=np.float64)))
+        held = clear.copy()
+        for w, g in zip(ws, gs):
+            held &= np.abs(g - w) < 0.5 * np.abs(w)
+        dt, dw = (got["params"][k] - p0[k])[held], (want["params"][k] - p0[k])[held]
+        counts[k] = (int(held.sum()), int(clear.sum()))
+        if (np.any(np.abs(dw) <= 0.25 * lr_total) or np.any(np.sign(dt) != np.sign(dw))
+                or np.any(np.abs(dt - dw) > lr_total / 2)):
+            bad.append(k)
+    few = {k: f"{h} of {c}" for k, (h, c) in counts.items() if c == 0 or h < 0.5 * c}
+    check(not few, f"parallel {what}: leaves with under half their entries clear of bf16 noise held: {few}")
+    check(not bad, f"parallel {what}: updates that leave the one-process update's sign or size: {bad}")
+    return worst, min(h / c for h, c in counts.values() if c)
+
+
+def grad_rel_diffs(got, want):
+    """{leaf: |got - want| / |want|} of the first update's gradients, each
+    leaf whole."""
+    import numpy as np
+
+    return {k: float(np.linalg.norm(got["grads"][0][k] - w) / np.linalg.norm(w)) for k, w in want["grads"][0].items()}
+
+
+def f32_step_report(got, want, what):
+    """A sharded run's float32 step against one process's: the loss within
+    PARALLEL_F32_RTOL, and every leaf's gathered gradient within
+    PARALLEL_F32_RTOL of the one-process gradient by relative norm. Returns
+    the worst leaf's relative difference."""
+    check(abs(got["losses"][0] - want["losses"][0]) <= PARALLEL_F32_RTOL * abs(want["losses"][0]),
+          f"parallel {what}: float32 loss {got['losses'][0]} within {PARALLEL_F32_RTOL} of one process's {want['losses'][0]}")
+    check(got["grads"][0].keys() == want["grads"][0].keys(), f"parallel {what}: the gathered gradients' keys")
+    rel = grad_rel_diffs(got, want)
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= PARALLEL_F32_RTOL,
+          f"parallel {what}: float32 gradients within {PARALLEL_F32_RTOL} of one process's by relative norm "
+          f"(worst {worst}: {rel[worst]})")
+    return rel[worst]
+
+
+def parallel_phase(dev, det, conv, rec, bench_group, host_groups, text_input, shipped_text, train_crnn_ms):
+    """Returns (report, GRU launches of the phase's main runs)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from ocrs_tpu_torch import PagePipeline
+    from ocrs_tpu_torch.engine import DEFAULT_ALPHABET, OcrEngine, OcrEngineParams
+    from ocrs_tpu_torch.models.recognition_net import RecognitionModel
+    from ocrs_tpu_torch.models.weights import load_flat, load_recognition_model, params_to_jax
+    from ocrs_tpu_torch.ops import gru
+    from ocrs_tpu_torch.parallel import distributed
+    from ocrs_tpu_torch.parallel.dryrun import TrainCase, dryrun_multichip, flat_params, run_train_case, run_train_cases
+    from ocrs_tpu_torch.parallel.sharding import make_data_mesh
+    from ocrs_tpu_torch.train import demo
+    from ocrs_tpu_torch.train.data import RecognitionDataset
+    from ocrs_tpu_torch.train.train import recognition_loss
+    from ocrs_tpu_torch.train.train_models import validation_batch
+
+    t_phase = time.perf_counter()
+    report, launches_total = {}, 0
+
+    def texts_of(results):
+        return [r.text for r in results]
+
+    # 1. The pipeline: one entry, two entries on the one card. Each shard
+    # runs the unsharded pipeline on its slice (its U-Net batch, its pooled
+    # line batches), so two shards must read exactly what the unsharded
+    # pipeline reads on each half; the whole group in one unsharded call
+    # differs in batches, and is compared for the report only.
+    one, two = make_data_mesh(), make_data_mesh(devices=["cuda:0", "cuda:0"])
+    plain = PagePipeline(det, conv, DEFAULT_ALPHABET, device="cuda")
+    half = len(bench_group) // 2
+    halves = texts_of(plain.process(bench_group[:half])) + texts_of(plain.process(bench_group[half:]))
+    captured = []
+    hook = conv.net.register_forward_hook(lambda m, inp, out: captured.append((inp[0], out.detach())))
+    plain_res = plain.process(bench_group)
+    want = texts_of(plain_res)
+    plain_lp = line_logprobs(captured)
+    pipes = {"one_shard": PagePipeline(det, conv, DEFAULT_ALPHABET, mesh=one),
+             "two_shards": PagePipeline(det, conv, DEFAULT_ALPHABET, mesh=two)}
+    pipe_report = {"pages": len(bench_group), "hw": list(bench_group.shape[1:]), "lines": sum(len(t.splitlines()) for t in want)}
+    for name, p in pipes.items():
+        captured.clear()
+        res = p.process(bench_group)
+        got = texts_of(res)
+        torch.cuda.synchronize()
+        lp = line_logprobs(captured)
+        flips, margins = 0, []
+        for key, a in lp.items():
+            b = plain_lp.get(key)
+            if b is None:
+                continue
+            t = min(len(a), len(b))
+            f = a[:t].argmax(-1) != b[:t].argmax(-1)
+            top2 = b[:t].topk(2, dim=-1).values
+            flips += int(f.sum())
+            margins += (top2[:, 0] - top2[:, 1])[f].tolist()
+        moved = len(lp) - sum(k in plain_lp for k in lp)
+        check(len(got) == len(want) and len(lp) > 0, f"parallel pipeline {name}: a result per page")
+        if name == "one_shard":
+            check(got == want and moved == 0, f"parallel pipeline one_shard: the unsharded run's text ({moved} crops moved)")
+        else:
+            check(got == halves, "parallel pipeline two_shards: each shard's text is the unsharded pipeline's on its "
+                  f"half ({sum(x != y for x, y in zip(got, halves))} pages differ)")
+        pipe_report[name] = {
+            "texts_equal_unsharded_per_shard": got == (want if name == "one_shard" else halves),
+            # Against one unsharded call over the whole group: a report.
+            "whole_group": {
+                "texts_equal": got == want, "pages_differing": sum(x != y for x, y in zip(got, want)),
+                "chars_differing": sum(text_edits(x, y) for x, y in zip(got, want)), "frames_flipped": flips,
+                "flip_margins": margins[:32], "crops_moved": moved, "crops": len(lp),
+                "lines_differing": [(i, a, b) for i, (x, y) in enumerate(zip(got, want))
+                                    for a, b in zip(x.splitlines(), y.splitlines()) if a != b][:12],
+                "words_lines_equal": [(len(a.words), len(a.lines)) for a in res] == [(len(b.words), len(b.lines)) for b in plain_res],
+            },
+        }
+    hook.remove()
+    # process_stream over 3 groups under two shards against 3 process calls.
+    groups = host_groups[:3]
+    serial = [texts_of(pipes["two_shards"].process(g)) for g in groups]
+    streamed = [texts_of(r) for r in pipes["two_shards"].process_stream(groups)]
+    check(streamed == serial, "parallel pipeline: process_stream under two shards equals three process calls")
+    pipe_report["two_shards_stream_equals_process"] = streamed == serial
+    # The CRNN at hidden 192 through two shards: both shard threads launch
+    # the kernel, each on its own stream, and each launch gives the plain
+    # version's result: the shard's own bf16 output of gru1 against the
+    # plain version on the operands gru1 made of its input, and the kernel
+    # against the plain version on those operands in float32.
+    crnn_two = PagePipeline(det, rec, DEFAULT_ALPHABET, mesh=two)
+    check(all(s._rec is rec for s in crnn_two._shards), "parallel pipeline: the two shards share the CRNN")
+    gru_io = {}
+
+    def keep_gru_io(module, inp, out):
+        gru_io.setdefault(threading.current_thread().name, (inp[0].detach(), out.detach()))
+
+    gru_hook = rec.net.gru1.register_forward_hook(keep_gru_io)
+    try:
+        reset_gru_counts()
+        crnn_texts = texts_of(crnn_two.process(bench_group[:4]))
+        torch.cuda.synchronize()
+        by_thread = dict(gru.bigru_sequence.launches_by_thread)
+        crnn_launches = gru.bigru_sequence.launches + gru.gru_sequence.launches
+    finally:
+        gru_hook.remove()
+    launches_total += crnn_launches
+    check(by_thread.get("ocrs-shard-0", 0) > 0 and by_thread.get("ocrs-shard-1", 0) > 0,
+          f"parallel pipeline: the GRU kernel launched on both shard threads ({by_thread})")
+    check(set(gru_io) == {"ocrs-shard-0", "ocrs-shard-1"}, f"parallel pipeline: gru1 ran on both shard threads ({list(gru_io)})")
+    shard_gru = {}
+    for thread, (x, y) in sorted(gru_io.items()):
+        ops = bigru_operands(rec.net.gru1, x)
+        ref = gru.bigru_sequence_reference(*ops)
+        own = float((y.float() - ref.transpose(0, 1).to(y.dtype).float()).abs().max())
+        kernel = float((gru.bigru_sequence(*ops) - ref).abs().max())
+        check(own <= SHARD_GRU_BF16_ATOL and kernel <= GRU_ATOL,
+              f"parallel pipeline: on {thread} the GRU kernel gives the plain version's result "
+              f"(its own bf16 output {own} <= {SHARD_GRU_BF16_ATOL}; float32 {kernel} <= {GRU_ATOL})")
+        shard_gru[thread] = {"input_shape": list(x.shape), "own_output_vs_plain": own, "kernel_vs_plain_f32": kernel}
+    rec.net.plain_gru = True
+    try:
+        crnn_plain = texts_of(crnn_two.process(bench_group[:4]))
+    finally:
+        rec.net.plain_gru = False
+    check(close_texts(crnn_texts, crnn_plain),
+          f"parallel pipeline: two shards read close texts with the kernel and the plain GRU ({crnn_texts} / {crnn_plain})")
+    pipe_report["crnn_two_shards"] = {
+        "gru_launches_by_thread": by_thread, "kernel_vs_plain_by_thread": shard_gru,
+        "texts_equal_plain_gru": sum(a == b for a, b in zip(crnn_texts, crnn_plain)), "pages": len(crnn_texts),
+    }
+    # Pages per second of process_stream: one shard, two shards (a
+    # measurement: the pipeline is host-bound, so this is how much host
+    # work the two threads overlap), with the process's CPU seconds per
+    # second of wall time while it ran.
+    for name in ("one_shard", "two_shards"):
+        p = pipes[name]
+        p.process_stream(host_groups[:PARALLEL_WARM])
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        res = p.process_stream(host_groups[PARALLEL_WARM : PARALLEL_WARM + PARALLEL_TIMED])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pipe_report[name]["stream_pages_per_s"] = sum(len(r) for r in res) / wall
+        pipe_report[name]["stream_host_cpu_s_per_s"] = (time.process_time() - c0) / wall
+    # Where two shards' time goes, by process over the group (fenced ms,
+    # median of PARALLEL_TIMED): the group in one unsharded call, its two
+    # halves one after the other, and the halves on the two shard threads.
+    pipe_report["process_ms"] = {
+        "unsharded_whole": wall_ms(lambda: plain.process(bench_group), PARALLEL_TIMED),
+        "unsharded_halves_in_turn": wall_ms(
+            lambda: (plain.process(bench_group[:half]), plain.process(bench_group[half:])), PARALLEL_TIMED),
+        "two_shards": wall_ms(lambda: pipes["two_shards"].process(bench_group), PARALLEL_TIMED),
+    }
+    report["pipeline"] = pipe_report
+    del pipes, plain, crnn_two
+
+    # 2. Training: dryrun_multichip(1), then the CRNN at hidden 192 over one
+    # NCCL rank against one process.
+    dry = dryrun_multichip(1)
+    report["dryrun_multichip_1"] = {k: dry[k] for k in ("train", "fake_pages", "real_pages", "real_nonempty", "real_texts")}
+    launches_total += dry["train"]["gru_launches_rank0"]
+    check(dry["train"]["gru_launches_rank0"] == 2, f"parallel dryrun: 2 GRU launches on the rank ({dry['train']['gru_launches_rank0']})")
+
+    images, labels, lengths = demo.make_batch(np.random.default_rng(6), TRAIN_BATCH, TRAIN_WIDTH)
+    lr_total = PARALLEL_STEPS * PARALLEL_LR
+
+    def crnn_case(name, n_classes, hidden, split=1):
+        tree = params_to_jax(RecognitionModel.create(seed=0, n_classes=n_classes, hidden=hidden, arch="crnn").net.state_dict())
+        # The batch's labels folded into the head's classes (1 .. n_classes - 1).
+        folded = np.where(labels > 0, (labels - 1) % (n_classes - 1) + 1, 0).astype(labels.dtype)
+        steps = [(images, folded, lengths)] * PARALLEL_STEPS
+        return TrainCase(name, "recognition", tree, steps, ("adamw", PARALLEL_LR), "crnn", split)
+
+    def f32(case, rows=None):
+        """One float32 step of `case` on its first batch (its first `rows`
+        rows)."""
+        batch = tuple(x[:rows] for x in case.batches[0])
+        return replace(case, name=f"{case.name}_f32" if rows is None else f"{case.name}_f32_rows{rows}",
+                       batches=[batch], dtype="float32", gru_check=False)
+
+    full = crnn_case("crnn", 97, TRAIN_HIDDEN)
+    small = crnn_case("crnn_split", SPLIT_CLASSES, SPLIT_HIDDEN, split=2)
+    single = {}
+    for case in (full, f32(full), small, f32(small), f32(full, rows=TRAIN_BATCH // 2)):
+        single[case.name] = run_train_case(case, None, device=dev)
+        single[case.name]["p0"] = flat_params(case.params)
+        launches_total += single[case.name]["gru_launches"]
+    # What the float32 check would see of a data split that trained each
+    # rank on its half of the batch: the half batch's gradients.
+    half_rel = grad_rel_diffs(single[f"crnn_f32_rows{TRAIN_BATCH // 2}"], single["crnn_f32"])
+    check(max(half_rel.values()) > 10 * PARALLEL_F32_RTOL,
+          f"parallel: the half batch's float32 gradients lie far outside {PARALLEL_F32_RTOL} ({max(half_rel.values())})")
+    train_report = {
+        "single_process": {"losses": single["crnn"]["losses"], "step_ms": single["crnn"]["step_ms"],
+                           "f32_loss": single["crnn_f32"]["losses"][0], "f32_step_ms": single["crnn_f32"]["step_ms"]},
+        "f32_rtol": PARALLEL_F32_RTOL,
+        "half_batch_f32_grad_rel_diff": {"max": max(half_rel.values()), "min": min(half_rel.values())},
+    }
+    # A one-rank NCCL group in this process: DDP over it, beside the
+    # one-process step in the same process.
+    store = Path(tempfile.mkdtemp(dir=REPO / "build"))
+    distributed.init_process_group(dev, init_method=f"file://{store / 'store'}", rank=0, world_size=1,
+                                   timeout=datetime.timedelta(seconds=120))
+    try:
+        backend = torch.distributed.get_backend()
+        r = run_train_case(full, distributed.make_mesh())
+        r32 = run_train_case(f32(full), distributed.make_mesh())
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    worst, held = bf16_step_report(r, single["crnn"], lr_total, "nccl one rank")
+    f32_worst = f32_step_report(r32, single["crnn_f32"], "nccl one rank")
+    check(backend == "nccl" and r["gru_launches"] == 2 * PARALLEL_STEPS,
+          f"parallel nccl: 2 GRU launches a step on the {backend} rank ({r['gru_launches']})")
+    launches_total += r["gru_launches"] + r32["gru_launches"]
+    train_report["nccl_one_rank"] = {"backend": backend, "losses": r["losses"], "step_ms": r["step_ms"],
+                                     "train_phase_crnn_step_ms": train_crnn_ms, "max_abs_param_diff": worst,
+                                     "least_leaf_share_of_clear_held": held, "f32_worst_grad_rel_diff": f32_worst,
+                                     "gru_launches": r["gru_launches"]}
+
+    # 3. Two gloo ranks on the one card: the data split of the same step,
+    # and the model split at even shapes. Each rank holds the GRU kernel
+    # against its plain version on its own input to gru1 (N = 32 rows a
+    # rank under the data split; hidden 64 under the model split).
+    gloo = run_train_cases([replace(full, gru_check=True), f32(full), replace(small, gru_check=True), f32(small)],
+                           2, device="cuda:0", backend="gloo")
+    check(gloo.get("built_in_rank") == [] and gloo.get("library_existed"), "parallel gloo: the ranks loaded the built kernel")
+    for case, what, key in ((full, "gloo data split", "gloo_data_split"), (small, "gloo model split", "gloo_model_split")):
+        r, r32 = gloo[case.name], gloo[f"{case.name}_f32"]
+        worst, held = bf16_step_report(r, single[case.name], lr_total, what)
+        f32_worst = f32_step_report(r32, single[f"{case.name}_f32"], what)
+        check(r["gru_launches_by_rank"] == [2 * PARALLEL_STEPS] * 2,
+              f"parallel {what}: 2 GRU launches a step on each rank ({r['gru_launches_by_rank']})")
+        check(r["gru_check"]["max_abs_err"] <= GRU_ATOL,
+              f"parallel {what}: the GRU kernel on rank 0's input vs plain {r['gru_check']} <= {GRU_ATOL}")
+        launches_total += sum(r["gru_launches_by_rank"]) + sum(r32["gru_launches_by_rank"])
+        train_report[key] = {"mesh": r["mesh"], "split": r["split"], "losses": r["losses"], "step_ms": r["step_ms"],
+                             "max_abs_param_diff": worst, "least_leaf_share_of_clear_held": held,
+                             "f32_loss": r32["losses"][0], "f32_step_ms": r32["step_ms"],
+                             "f32_worst_grad_rel_diff": f32_worst, "gru_launches_by_rank": r["gru_launches_by_rank"],
+                             "gru_kernel_vs_plain_rank0": r["gru_check"]}
+    report["train"] = train_report
+
+    # 4. The trainer under torchrun, one rank.
+    out = REPO / "build" / "chip_smoke_torchrun" / "convctc.npz"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    argv = ["recognition", "--arch", "convctc", "--init-from", str(REPO / "weights" / "text-recognition.npz"),
+            "--cache", str(TRAIN_CACHES / REC_CACHE), "--batch", "64", "--width", "768",
+            "--steps", str(TORCHRUN_STEPS), "--lr", "1e-4", "--val-size", "0", "--val-every", str(TORCHRUN_STEPS),
+            "-o", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=1",
+                           "-m", "ocrs_tpu_torch.train.train_models", *argv],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"parallel torchrun: the trainer exits 0 ({proc.returncode}: {proc.stderr[-1500:]})")
+    trainer = {"args": argv, "seconds": seconds, "rc": proc.returncode,
+               "printed": [l for l in proc.stdout.splitlines() if "loss" in l or "saved" in l]}
+    if proc.returncode == 0:
+        ok, meta = weight_tree_report(out, load_flat(REPO / "weights" / "text-recognition.npz")[0])
+        check(ok and meta.get("arch") == "convctc" and meta.get("steps") == TORCHRUN_STEPS,
+              f"parallel torchrun: the export has the shipped file's keys, shapes and dtype ({meta})")
+        # The trainer prints the loss at step 1 only over 10 steps: the loss
+        # falls where the exported weights' mean CTC loss over the whole
+        # cache it trained on is below the shipped weights'.
+        cache = validation_batch(RecognitionDataset(0, cache_path=TRAIN_CACHES / REC_CACHE))
+        exported = load_recognition_model(out).to(dev)
+        before, after = (float(recognition_loss(m.to(dev), *cache)) for m in (conv, exported))
+        check(after < before, f"parallel torchrun: the loss over the cache falls ({before} -> {after})")
+        engine = OcrEngine(OcrEngineParams(detection_model=det, recognition_model=exported), device="cuda")
+        text = engine.get_text(text_input)
+        check(text == shipped_text, f"parallel torchrun: the export reads the text page as the shipped weights do ({text!r})")
+        trainer.update(exported_meta=meta, text_page=text, cache_loss_shipped=before, cache_loss_exported=after)
+    report["torchrun_trainer"] = trainer
+    report["seconds"] = time.perf_counter() - t_phase
+    return report, launches_total
+
+
 def main() -> int:
     import torch
 
@@ -2338,6 +2789,12 @@ def main() -> int:
     convert_report, convert_launches = convert_phase(dev, det, inputs["text"])
     emit({"phase": "convert", **convert_report})
 
+    # 16. More than one device, on the one card ----------------------------------------
+    parallel_report, parallel_launches = parallel_phase(
+        dev, det, conv, rec, bench_group, host_groups, inputs["text"], d_texts["text"], train_report["crnn"]["step_ms"]
+    )
+    emit({"phase": "parallel", "card": smi, **parallel_report})
+
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
@@ -2350,13 +2807,14 @@ def main() -> int:
                     "source": "ocrs_tpu_torch/csrc/gru_seq.cu",
                     "replaces": "ocrs_tpu/ops/gru_pallas.py:41",
                     "launches": launches + pipe_launches + sum(serve_launches.values()) + train_launches
-                    + trainer_launches + convert_launches,
+                    + trainer_launches + convert_launches + parallel_launches,
                     "launches_by_path": {
                         "engine": launches, "pipeline_crnn": pipe_launches, **serve_launches, "train": train_launches,
-                        "train_driver": trainer_launches, "convert": convert_launches,
+                        "train_driver": trainer_launches, "convert": convert_launches, "parallel": parallel_launches,
                     },
                     "launch_sites": "the caller's thread (engine, pipeline), the batching service's worker "
-                    "thread (serve_worker), the HTTP server's handler threads (serve_handlers)",
+                    "thread (serve_worker), the HTTP server's handler threads (serve_handlers), the shard "
+                    "threads of PagePipeline(mesh=) and spawned training ranks (parallel)",
                     "max_abs_err": max(max_err, worker_err, *(v["max_abs_err"] for v in large.values())),
                     "max_abs_err_on_serve_worker_input": worker_err,
                     "shape": {"T": GRU_T, "N": GRU_N, "H": GRU_H},

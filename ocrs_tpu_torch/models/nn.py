@@ -11,6 +11,15 @@ in that dtype. Parameters are made without grad, so an inference forward
 builds no graph; ``requires_grad_()`` makes a model trainable (the training
 states of :mod:`ocrs_tpu_torch.train` do so), and every layer, the GRU
 kernel's included, is then differentiable.
+
+The column split of training over a ``"model"`` group
+(:mod:`ocrs_tpu_torch.parallel.distributed`): :meth:`Dense.split_columns_`
+and :meth:`GRU.split_columns_` keep this rank's slice of the output columns
+of ``w`` (of ``wx``); the layer then copies its input to the group,
+multiplies by its slice, gathers the whole output and adds the bias, which
+stays whole, as the JAX package's rule shards only 2-D leaves. The GRU's
+recurrence then reads the whole ``[N, T, 3H]`` projection, so its kernel runs
+as it does on one device. Without a group nothing changes.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gru import BiGRUSequence, bigru_sequence_reference
+from ..parallel.distributed import column_slice, copy_to_model, gather_from_model
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -32,6 +42,23 @@ def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
     out = -(-size // stride)
     total = max((out - 1) * stride + kernel - size, 0)
     return total // 2, total - total // 2
+
+
+def project(x: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
+    """``x @ w``; with a model `group`, `w` is this rank's slice of the
+    columns and the product is gathered whole (differentiably)."""
+    if group is None:
+        return x @ w
+    return gather_from_model(copy_to_model(x, group) @ w, group)
+
+
+def _split_columns_(module: nn.Module, name: str, group) -> None:
+    """Replace parameter `name` of `module` by this model rank's slice of
+    its last dimension (its columns)."""
+    full = getattr(module, name)
+    part = full.detach()[..., column_slice(full.shape[-1], group)].clone()
+    setattr(module, name, nn.Parameter(part, requires_grad=full.requires_grad))
+    module.model_group = group
 
 
 def _he_normal(shape: tuple[int, ...], fan_in: int, generator: torch.Generator) -> torch.Tensor:
@@ -70,9 +97,15 @@ class Dense(nn.Module):
         self.b = nn.Parameter(torch.zeros(cout), requires_grad=False)
         if generator is not None:
             self.w.copy_(_he_normal((cin, cout), cin, generator))
+        self.model_group = None
+
+    def split_columns_(self, group) -> None:
+        """Keep this model rank's slice of ``w``'s columns (see the module
+        docstring)."""
+        _split_columns_(self, "w", group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w.to(x.dtype) + self.b.to(x.dtype)
+        return project(x, self.w.to(x.dtype), self.model_group) + self.b.to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -132,9 +165,15 @@ class GRU(nn.Module):
         if generator is not None:
             self.wx.copy_(_he_normal((cin, 3 * hidden), cin, generator))
             self.wh.copy_(_he_normal((hidden, 3 * hidden), hidden, generator))
+        self.model_group = None
 
-    def params(self) -> dict[str, torch.Tensor]:
-        return {"wx": self.wx, "wh": self.wh, "bx": self.bx, "bh": self.bh}
+    def split_columns_(self, group) -> None:
+        """Keep this model rank's slice of the input projection ``wx``'s
+        columns (see the module docstring)."""
+        _split_columns_(self, "wx", group)
+
+    def params(self) -> dict:
+        return {"wx": self.wx, "wh": self.wh, "bx": self.bx, "bh": self.bh, "model_group": self.model_group}
 
 
 def bigru_apply(params: dict, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -150,10 +189,15 @@ def bigru_apply(params: dict, x: torch.Tensor, plain: bool = False) -> torch.Ten
     sequence kernel for its plain PyTorch version, differentiated by autograd
     (a test switch; on the CPU both run the plain loops). A float64 `x`
     keeps float64 in the recurrence (the CPU's double-precision checks), as
-    the JAX package's ``gru_apply`` does."""
+    the JAX package's ``gru_apply`` does. A direction whose ``model_group``
+    is set holds a column slice of ``wx``: its projection is gathered whole
+    (:func:`project`)."""
     f32 = torch.promote_types(torch.float32, x.dtype)
     dirs = (params["fwd"], params["bwd"])
-    xps = [((x @ p["wx"].to(x.dtype)).to(f32) + p["bx"].to(f32)).transpose(0, 1) for p in dirs]
+    xps = [
+        (project(x, p["wx"].to(x.dtype), p.get("model_group")).to(f32) + p["bx"].to(f32)).transpose(0, 1)
+        for p in dirs
+    ]
     rec = [t for p in dirs for t in (p["wh"].to(f32).contiguous(), p["bh"].to(f32).contiguous())]
     if plain:
         return bigru_sequence_reference(*xps, *rec).transpose(0, 1).to(x.dtype)

@@ -19,14 +19,24 @@ call is large, and synchronize with the host as rarely as possible:
 
 Host waits per page group: 1 (the table) + one per recognition batch, each
 for a copy started long before. PyTorch runs eagerly, so the JAX pipeline's
-fused ``jit`` programs and their fallbacks have no counterpart; its ``mesh``
-option (pages sharded over several devices) is not ported.
+fused ``jit`` programs and their fallbacks have no counterpart.
+
+``mesh=`` (a :class:`.sharding.DataMesh`) shards each page group over
+several devices, as the JAX pipeline's ``mesh`` shards it over a ``"data"``
+axis: the group is cut into one contiguous slice per mesh entry (an uneven
+group raises ``ValueError``, as JAX's ``device_put`` does), and each entry
+runs a single-device pipeline of its own on its slice, on a long-lived
+worker thread of its own and on a CUDA stream of its own, so that the host work of the shards
+overlaps and two shards may share one card. Recognition batches are pooled
+per shard. Results come back in page order.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional
 
@@ -93,6 +103,7 @@ from ..recognition import (
 from ..text_items import TextLine
 from ..utils.log import warn
 from ..utils.tracing import StageTimer
+from .sharding import DataMesh, replicate, shard_batch_dim, split_batch_dim
 
 
 def _normalize_batch(imgs: torch.Tensor, is_u8: bool) -> torch.Tensor:
@@ -241,6 +252,15 @@ def probe_h2d_mbps(device: torch.device | str = "cuda") -> float:
     return _probed_h2d_mbps[key]
 
 
+def _name_thread(name: str) -> None:
+    threading.current_thread().name = name
+
+
+def _concat(parts: Iterable[list]) -> list:
+    """The shards' results, one list, in page order."""
+    return [r for part in parts for r in part]
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on `device`, queued on the calling thread's
     current stream. To a card the bytes go through pinned memory without
@@ -316,6 +336,7 @@ class PagePipeline:
         width_bucket: Optional[Callable[[int], int]] = None,
         max_lines_per_batch: int = 128,
         max_components: int = 512,
+        mesh: Optional[DataMesh] = None,
         multigrid: bool = True,
         solidify: bool = True,
         decode_method: Optional[DecodeMethod] = None,
@@ -334,6 +355,14 @@ class PagePipeline:
     ):
         """`device`: where the pipeline runs; CUDA when None, and asking for
         CUDA where there is none raises. The models are moved there.
+
+        `mesh`: a :class:`.sharding.DataMesh`; each page group is sharded
+        over its entries (see the module docstring). The models are moved to
+        the first entry's device and copied once to each other device; the
+        entries that share a device share them. `device`, where given, must
+        be the first entry's. Under a mesh, ``transport="auto"`` is "hbm",
+        as in the JAX pipeline (host crops do not shard), and "lowbw" still
+        needs the native library but stages pages as "hbm" does.
 
         `multigrid`/`solidify` control how mask pixels join into words: the
         defaults decide connectivity at half resolution on the 3x3-closed
@@ -370,6 +399,11 @@ class PagePipeline:
             is available, else "hbm".
         `transport_pack4`: in lowbw mode pack two 4-bit pixels per byte
         (half the bytes again; about +-8/255 of quantization)."""
+        if mesh is not None:
+            first = resolve_device(mesh.devices[0])
+            if device is not None and resolve_device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first device {first}")
+            device = first
         self.device = resolve_device(device)
         for model in (detection_model, recognition_model):
             if isinstance(model, torch.nn.Module):
@@ -398,7 +432,8 @@ class PagePipeline:
                 "transport='lowbw' requires the native library (native/ocrs_native.cpp): "
                 f"{native.build_error()}"
             )
-        self._transport = transport
+        # Sharded (mesh) runs keep pages on the devices: host crops don't shard.
+        self._transport = "hbm" if (mesh is not None and transport == "auto") else transport
         self._pack4 = transport_pack4
         self._deskew = deskew
         self._vertical = vertical_text
@@ -415,6 +450,32 @@ class PagePipeline:
             allowed = set(allowed_chars)
             onehot = [False] + [ch not in allowed for ch in alphabet]
             self._excluded_onehot = torch.tensor(onehot, dtype=torch.bool, device=self.device)
+        self._mesh = mesh
+        self._shards: Optional[list[PagePipeline]] = None
+        if mesh is not None:
+            options = dict(
+                detector_params=detector_params, width_bucket=width_bucket, max_lines_per_batch=max_lines_per_batch,
+                max_components=max_components, multigrid=multigrid, solidify=solidify,
+                decode_method=decode_method, allowed_chars=allowed_chars, tiled_detection=tiled_detection,
+                tile_overlap=tile_overlap, run_table_geometry=run_table_geometry, transport="hbm",
+                transport_pack4=transport_pack4, deskew=deskew, vertical_text=vertical_text,
+                min_line_confidence=min_line_confidence, debug=debug,
+            )
+            replicas = replicate(mesh, (detection_model, recognition_model))
+            self._shards = [
+                PagePipeline(det, rec, alphabet, **options, device=dev)
+                for (det, rec), dev in zip(replicas, mesh.devices)
+            ]
+            self._shard_streams = [
+                torch.cuda.Stream(shard.device) if shard.device.type == "cuda" else None for shard in self._shards
+            ]
+            # One long-lived worker thread per shard, named ocrs-shard-<i>: a
+            # thread keeps its cuBLAS and cuDNN handles and plans, which a
+            # fresh thread sets up again.
+            self._shard_workers = [
+                ThreadPoolExecutor(max_workers=1, initializer=_name_thread, initargs=(f"ocrs-shard-{i}",))
+                for i in range(len(self._shards))
+            ]
 
     def _transport_mode(self) -> str:
         """Resolve "auto" to "hbm"/"lowbw" (probing the link on first call)."""
@@ -846,7 +907,12 @@ class PagePipeline:
     def _stage_pages(self, pages):
         """Upload and normalize a page stack on the calling thread's current
         stream, without waiting for the device. A [B, H, W] float32 tensor is
-        taken as already normalized; staged pages pass through."""
+        taken as already normalized; staged pages pass through. Under a mesh:
+        a list of each shard's staged slice."""
+        if self._shards is not None:
+            if isinstance(pages, list):
+                return pages
+            return [shard._stage_pages(part) for shard, part in zip(self._shards, split_batch_dim(self._mesh, pages))]
         if isinstance(pages, _HostPages):
             return pages
         if isinstance(pages, torch.Tensor):
@@ -883,7 +949,59 @@ class PagePipeline:
         """Run OCR on a stack of same-sized pages.
 
         `pages`: [B, H, W] or [B, H, W, C] u8/float numpy array."""
+        if self._shards is not None:
+            return _concat(self._run_shards(lambda shard, part: shard.process(part), split_batch_dim(self._mesh, pages)))
         return self.process_normalized(self._stage_pages(pages))
+
+    # -- shards (mesh) ------------------------------------------------------------
+
+    def _run_shards(self, fn: Callable, parts: list) -> list:
+        """Run ``fn(shard, part)`` for each shard on its worker thread and
+        its CUDA stream, which first waits for the work the calling thread
+        queued on that device (its staging, the models' upload). Waits for
+        every shard, then raises the first shard's error or returns the
+        shards' results in order."""
+        caller = {
+            shard.device: torch.cuda.current_stream(shard.device)
+            for shard in self._shards
+            if shard.device.type == "cuda"
+        }
+
+        def run(i: int):
+            shard, stream = self._shards[i], self._shard_streams[i]
+            if stream is None:
+                return fn(shard, parts[i])
+            stream.wait_stream(caller[shard.device])
+            with torch.cuda.stream(stream):
+                return fn(shard, parts[i])
+
+        futures = [worker.submit(run, i) for i, worker in enumerate(self._shard_workers)]
+        wait(futures)
+        return [f.result() for f in futures]
+
+    def _process_stream_sharded(self, page_batches: Iterable) -> list[list[PageResult]]:
+        """process_stream under a mesh: each shard streams its slices of the
+        groups through its own pipeline (:meth:`process_stream`) on its
+        worker. The groups are read lazily: the shard that first needs a
+        group reads and splits it, and keeps the other shards' slices for
+        them."""
+        source, lock, end = iter(page_batches), threading.Lock(), object()
+        pending = [collections.deque() for _ in self._shards]
+
+        def slices(i: int):
+            while True:
+                with lock:
+                    if not pending[i]:
+                        group = next(source, end)
+                        if group is end:
+                            return
+                        for kept, part in zip(pending, split_batch_dim(self._mesh, group)):
+                            kept.append(part)
+                    part = pending[i].popleft()
+                yield part
+
+        per_shard = self._run_shards(lambda shard, i: shard.process_stream(slices(i)), list(range(len(self._shards))))
+        return [_concat(groups) for groups in zip(*per_shard)]
 
     def process_stream(self, page_batches: Iterable) -> list[list[PageResult]]:
         """Run OCR over an iterable of page stacks as a software pipeline:
@@ -910,7 +1028,10 @@ class PagePipeline:
 
         Returns per-group results, in order. Upstream has no analog (one
         image at a time); this takes the place of its thread-pool overlap
-        (recognition.rs:464-467) at page granularity."""
+        (recognition.rs:464-467) at page granularity. Under a mesh each shard
+        runs this on its slices of the groups."""
+        if self._shards is not None:
+            return self._process_stream_sharded(page_batches)
         results: list[list[PageResult]] = []
         staged: list = []  # uploaded, detect not yet dispatched
         detected: list[tuple] = []  # (pages_dev, table copies, scale), in order
@@ -986,8 +1107,15 @@ class PagePipeline:
         float32 in [-0.5, 0.5]), or staged by :meth:`_stage_pages`. The
         stages' wall times go to `timer` (pass one with ``fence_device`` to
         have each stage wait for its device work); with ``debug=True`` they
-        are printed like the engine's get_text."""
+        are printed like the engine's get_text. Under a mesh `pages_dev` is
+        a list of the shards' staged slices (:meth:`_stage_pages`), or one
+        tensor that is sharded first, and `timer` times the shards as one
+        stage, "shards"."""
         timer = timer or StageTimer(debug=self._debug)
+        if self._shards is not None:
+            parts = pages_dev if isinstance(pages_dev, list) else shard_batch_dim(self._mesh, pages_dev)
+            with timer.stage("shards"):
+                return _concat(self._run_shards(lambda shard, part: shard.process_normalized(part), parts))
         with timer.stage("detect"):
             tables, scale = self._detect_tables(pages_dev)
         with timer.stage("rects_to_host"):

@@ -1,4 +1,5 @@
-"""Training on one GPU: the port of ``ocrs_tpu.train`` without the mesh.
+"""Training: the port of ``ocrs_tpu.train``, on one GPU or over a
+``("data", "model")`` mesh of processes (:mod:`..parallel.distributed`).
 
 :mod:`.losses` (BCE + soft Dice, mean CTC), :mod:`.optim` (the optax
 recipes the repository trains with, on ``torch.optim``), :mod:`.train`

@@ -8,6 +8,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -47,8 +48,15 @@ def ctc_loss(
     The gradient PyTorch gives the log-probs is that of the logits before a
     ``log_softmax`` (``softmax - posterior``); through the recognizers' own
     ``log_softmax`` the parameters' gradients are the true ones."""
-    t, n, _ = logprobs_tnc.shape
+    t, n, c = logprobs_tnc.shape
     device = logprobs_tnc.device
+    if not (isinstance(labels, torch.Tensor) and labels.is_cuda):
+        # F.ctc_loss does not check its targets on the CPU, and a class past
+        # the last writes out of bounds there: refuse it (host labels only;
+        # a check of labels on the card would wait for it).
+        host = np.asarray(labels.cpu() if isinstance(labels, torch.Tensor) else labels)
+        if host.size and (host.min() < 0 or host.max() >= c):
+            raise ValueError(f"CTC labels must lie in [0, {c}): got {host.min()} to {host.max()}")
     if logit_lengths is None:
         logit_lengths = torch.full((n,), t, dtype=torch.long)
     per_seq = F.ctc_loss(

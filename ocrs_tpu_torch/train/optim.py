@@ -28,6 +28,12 @@ steps ``torch.optim.Adam`` / ``AdamW`` on the gradients autograd left in
 read and write the state where optax keeps it (the update count, ``mu`` and
 ``nu``; the schedule's count), so that a checkpoint crosses between the two
 packages (:mod:`.checkpoint`).
+
+Over a ``"model"`` group (:mod:`.train`'s column split) an optimizer is
+bound to this rank's slices of the split parameters: Adam's moments live on
+the slices, the clip's global norm is that of the whole arrays (the split
+leaves' squares summed over the group, the replicated ones counted once, as
+optax takes it under XLA), and the state tree holds the moments whole.
 """
 
 from __future__ import annotations
@@ -38,7 +44,10 @@ from typing import Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..parallel.distributed import column_slice, gather_columns
 
 Schedule = Callable[[int], float]
 
@@ -83,9 +92,11 @@ class Recipe:
     weight_decay: float | None = None
     clip_norm: float | None = None
 
-    def init(self, module: nn.Module) -> "Optimizer":
-        """Bind the recipe to `module`'s parameters (zero moments, count 0)."""
-        return Optimizer(self, dict(module.named_parameters()))
+    def init(self, module: nn.Module, split: frozenset[str] = frozenset(), model_group=None) -> "Optimizer":
+        """Bind the recipe to `module`'s parameters (zero moments, count 0).
+        `split`: the names of the parameters that are this rank's column
+        slice over `model_group`."""
+        return Optimizer(self, dict(module.named_parameters()), split, model_group)
 
     # Where optax keeps the state of this recipe, under ``opt_state/``: the
     # Adam state (count, mu, nu), and the schedule's count where the
@@ -129,11 +140,23 @@ def chain(*transforms) -> Recipe:
     raise ValueError("chain takes (clip_by_global_norm(...), adam(...) or adamw(...)) only")
 
 
-def clip_grads_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_grads_by_global_norm_(
+    grads: list[torch.Tensor], max_norm: float, split: list[bool] | None = None, model_group=None
+) -> torch.Tensor:
     """Scale `grads` in place by ``max_norm / norm`` where their global norm
     is at least `max_norm` (optax's rule, on the device, no host read).
-    Returns the norm."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    With a `model_group`, the grads marked in `split` are slices of arrays
+    split over it: their squares are summed over the group, so that the
+    norm is that of the whole arrays. Returns the norm."""
+    norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+    if model_group is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor(split, device=norms.device)
+        squares = norms.square()
+        split_sq = squares[mask].sum()
+        dist.all_reduce(split_sq, group=model_group)
+        norm = torch.sqrt(squares[~mask].sum() + split_sq)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale.to(g.dtype))
@@ -144,11 +167,20 @@ class Optimizer:
     """A :class:`Recipe` bound to named parameters: ``zero_grad``, then
     ``loss.backward()``, then :meth:`step`, as optax's ``update`` and
     ``apply_updates`` follow ``value_and_grad``. ``count`` is optax's update
-    count."""
+    count; ``grad_norm`` the global norm the last clipped update measured."""
 
-    def __init__(self, recipe: Recipe, named_params: Mapping[str, nn.Parameter]):
+    def __init__(
+        self,
+        recipe: Recipe,
+        named_params: Mapping[str, nn.Parameter],
+        split: frozenset[str] = frozenset(),
+        model_group=None,
+    ):
         self.recipe = recipe
         self.named_params = dict(named_params)
+        self.split = frozenset(split) if model_group is not None else frozenset()
+        self.model_group = model_group
+        self.grad_norm: torch.Tensor | None = None
         params = list(self.named_params.values())
         common = {"lr": self.learning_rate(0), "betas": (B1, B2), "eps": EPS}
         if recipe.weight_decay is None:
@@ -174,23 +206,45 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.recipe.clip_norm is not None:
-            clip_grads_by_global_norm_([p.grad for p in params], self.recipe.clip_norm)
+            self.grad_norm = clip_grads_by_global_norm_(
+                [p.grad for p in params], self.recipe.clip_norm,
+                [name in self.split for name in self.named_params], self.model_group,
+            )
         lr = self.learning_rate()
         for group in self.torch.param_groups:
             group["lr"] = lr
         self.torch.step()
         self.count += 1
 
+    def whole(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
+        """`tensor` (parameter `name`, or a tensor in its layout) whole: the
+        model group's slices gathered where `name` is split (a collective),
+        else `tensor` itself."""
+        if name not in self.split:
+            return tensor
+        with torch.no_grad():
+            return gather_columns(tensor.detach(), self.model_group)
+
+    def part(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole `tensor` in parameter `name`'s
+        layout (`tensor` itself where `name` is not split)."""
+        if name not in self.split:
+            return tensor
+        return tensor[..., column_slice(tensor.shape[-1], self.model_group)]
+
     def _moments(self, key: str) -> dict[str, torch.Tensor]:
+        """Adam's moment `key` of every parameter, whole."""
         return {
-            name: self.torch.state[p][key] if p in self.torch.state else torch.zeros_like(p)
+            name: self.whole(name, self.torch.state[p][key] if p in self.torch.state else torch.zeros_like(p))
             for name, p in self.named_params.items()
         }
 
     def state_tree(self) -> dict:
         """optax's ``opt_state`` of this recipe as a tree of string-keyed
         dicts (optax's empty states left out, as the flat file leaves them
-        out), the moments in the JAX layout, numpy leaves."""
+        out), the moments whole in the JAX layout, numpy leaves. A
+        collective where parameters are split: every rank of the model group
+        calls it."""
         from ..models.weights import params_to_jax
 
         count = np.asarray(self.count, dtype=np.int32)
@@ -205,7 +259,8 @@ class Optimizer:
         """Load the state from a checkpoint's ``opt_state/...`` entries (keys
         without that prefix, ``/``-joined): count, ``mu`` and ``nu`` where
         optax keeps them for this recipe. Raises ``ValueError`` when they
-        are not there or do not cover the parameters."""
+        are not there or do not cover the parameters. The moments are whole
+        in the file; a rank keeps its slices of the split ones."""
         from ..models.weights import params_from_jax
 
         pre = self.recipe._prefix()
@@ -227,7 +282,7 @@ class Optimizer:
         for name, p in self.named_params.items():
             self.torch.state[p] = {
                 "step": step.clone(),
-                "exp_avg": moments[0][name].to(device=p.device, dtype=p.dtype),
-                "exp_avg_sq": moments[1][name].to(device=p.device, dtype=p.dtype),
+                "exp_avg": self.part(name, moments[0][name]).to(device=p.device, dtype=p.dtype).contiguous(),
+                "exp_avg_sq": self.part(name, moments[1][name]).to(device=p.device, dtype=p.dtype).contiguous(),
             }
         self.count = count

@@ -15,26 +15,39 @@ caches rendered elsewhere (``--cache``). Validation: greedy-decode CER on a
 held-out styled set (recognition), printed during training, with a
 checkpoint of the weights at every validation.
 
-Steps, schedule and chain are the JAX script's (:mod:`.optim`), on one
-device: no mesh and no batch sharding. The exported file has the JAX
-script's keys, shapes, dtypes and ``meta`` (``trained_on`` names this
-package's renderer) and loads in either package.
+Steps, schedule and chain are the JAX script's (:mod:`.optim`). The JAX
+script trains over ``make_mesh()``, every device it sees; the port trains on
+one device, or on several under ``torchrun``, one process each:
+
+    torchrun --standalone --nproc-per-node=N -m ocrs_tpu_torch.train.train_models ...
+
+Where ``WORLD_SIZE`` is set (``torchrun`` sets it), the trainer joins the
+process group (``nccl`` on the card, ``gloo`` with ``--device cpu``) and
+makes the data mesh (model split 1, as ``make_mesh()`` is there). Every rank
+draws the same global batch from the same seed and keeps its rows; rank 0
+alone renders a missing cache (the others wait, then read it), prints,
+validates and exports. The exported file has the JAX script's keys, shapes,
+dtypes and ``meta`` (``trained_on`` names this package's renderer), the same
+as one process writes, and loads in either package.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..engine import DEFAULT_ALPHABET
 from ..models.detection_net import DEFAULT_INPUT_HW
 from ..models.weights import load_params, params_to_jax, save_params
 from ..ops.ctc import collapse_greedy_batch
+from ..parallel.distributed import Mesh, init_process_group, is_main_rank, local_device, make_mesh
 from ..preprocess import BLACK_VALUE
 from . import optim
 from .data import DetectionDataset, RecognitionDataset, _place_sample, recognition_batches
@@ -43,6 +56,7 @@ from .train import (
     init_recognition_state,
     make_detection_train_step,
     make_recognition_train_step,
+    shard_batch,
 )
 
 REPO = Path(__file__).resolve().parents[2]
@@ -111,9 +125,35 @@ def validation_batch(ds: RecognitionDataset) -> tuple[np.ndarray, np.ndarray, np
     return images, labels, lengths
 
 
+def _log(*args, **kwargs) -> None:
+    """``print`` on the main rank (and outside a process group)."""
+    if is_main_rank():
+        print(*args, **kwargs)
+
+
+def _main_rank_first(mesh: Optional[Mesh], make: Callable):
+    """``make()`` on rank 0 first, then on the other ranks (a dataset whose
+    cache rank 0 renders and the others then read)."""
+    if mesh is None:
+        return make()
+    if is_main_rank():
+        made = make()
+        dist.barrier()
+        return made
+    dist.barrier()
+    return make()
+
+
+def _rows(mesh: Optional[Mesh], batches):
+    """This rank's rows of each global batch."""
+    for batch in batches:
+        yield shard_batch(mesh, *batch) if mesh is not None else batch
+
+
 def _run(args, state, step_fn, batches, label: str, print_every: int, on_step=None) -> dict:
     """``args.steps`` steps of `step_fn` on `batches`; each loss is read (so
-    each step is fenced) and kept, with the step's wall time."""
+    each step is fenced) and kept, with the step's wall time. Under a mesh
+    the loss is the global batch's."""
     losses, step_s, batch_s = [], [], []
     t0 = time.time()
     for step in range(1, args.steps + 1):
@@ -126,27 +166,27 @@ def _run(args, state, step_fn, batches, label: str, print_every: int, on_step=No
         step_s.append(te - ts)
         batch_s.append(tb - ts)
         if step % print_every == 0 or step == 1:
-            print(f"[{label}] step {step:6d}  loss {losses[-1]:8.3f}  ({time.time() - t0:.0f}s)", flush=True)
+            _log(f"[{label}] step {step:6d}  loss {losses[-1]:8.3f}  ({time.time() - t0:.0f}s)", flush=True)
         if on_step is not None:
             on_step(state, step)
     return {"losses": losses, "step_seconds": step_s, "batch_seconds": batch_s}
 
 
-def train_recognition(args, val_batch: Optional[tuple] = None) -> dict:
+def train_recognition(args, val_batch: Optional[tuple] = None, mesh: Optional[Mesh] = None) -> dict:
     """Train a recognizer as ``args`` say. `val_batch` (images, labels,
     lengths) replaces the held-out set the JAX script draws with the
     streaming renderer (seed ``data_seed + 7919``, ``val_size`` lines).
-    Returns the run's record: losses, step times, validation CERs, the
-    exported file."""
+    `mesh`: train over it (see the module docstring). Returns the run's
+    record: losses, step times, validation CERs, the exported file."""
     n_classes = len(DEFAULT_ALPHABET) + 1
     cache = (
         Path(args.cache)
         if args.cache
         else CACHE_DIR / f"rec_{args.samples}_{args.width}_s{args.data_seed}.npz"
     )
-    print(f"dataset: {args.samples} lines (cache {cache})", flush=True)
+    _log(f"dataset: {args.samples} lines (cache {cache})", flush=True)
     t0 = time.time()
-    ds = RecognitionDataset(
+    ds = _main_rank_first(mesh, lambda: RecognitionDataset(
         args.samples,
         width=args.width,
         alphabet=DEFAULT_ALPHABET,
@@ -156,12 +196,13 @@ def train_recognition(args, val_batch: Optional[tuple] = None) -> dict:
         log_every=5000,
         extra_caches=args.extra_cache or None,
         render_kwargs=_render_kwargs(args),
-    )
-    print(f"dataset ready in {time.time() - t0:.0f}s ({len(ds)} lines)", flush=True)
+    ))
+    _log(f"dataset ready in {time.time() - t0:.0f}s ({len(ds)} lines)", flush=True)
     if args.render_only:
         return {"cache": str(cache), "samples": len(ds)}
 
-    if val_batch is None:
+    main_rank = is_main_rank()
+    if val_batch is None and main_rank:
         # Held-out validation set (different seed, streaming renderer).
         val_batch = next(
             recognition_batches(
@@ -172,15 +213,13 @@ def train_recognition(args, val_batch: Optional[tuple] = None) -> dict:
                 render_kwargs=_render_kwargs(args),
             )
         )
-    val_imgs, val_labels, val_lengths = val_batch
-
     optimizer = recipe(args, 300)
-    step_fn = make_recognition_train_step(optimizer, arch=args.arch)
+    step_fn = make_recognition_train_step(optimizer, arch=args.arch, mesh=mesh)
 
     init_params = None
     if args.init_from:
         init_params, init_meta = load_params(args.init_from)
-        print(f"warm start from {args.init_from} (meta {init_meta.get('arch')})", flush=True)
+        _log(f"warm start from {args.init_from} (meta {init_meta.get('arch')})", flush=True)
 
     def _save(state, step):
         out = Path(args.output)
@@ -205,36 +244,43 @@ def train_recognition(args, val_batch: Optional[tuple] = None) -> dict:
         hidden=args.hidden,
         arch=args.arch,
         init_params=init_params,
-        device=args.device,
+        device=args.device if mesh is None else None,
+        mesh=mesh,
     )
-    val_on_device = torch.from_numpy(np.asarray(val_imgs, np.float32)).to(state.device)
     cers = []
+    if main_rank:
+        val_imgs, val_labels, val_lengths = val_batch
+        val_on_device = torch.from_numpy(np.asarray(val_imgs, np.float32)).to(state.device)
 
     def validate(state, step):
-        if step % args.val_every == 0 or step == args.steps:
+        if main_rank and (step % args.val_every == 0 or step == args.steps):
             cer = _greedy_cer(state.model.run(val_on_device), val_labels, val_lengths, DEFAULT_ALPHABET)
             cers.append((step, cer))
-            print(f"[recognition/{args.arch}] step {step:6d}  val CER {cer:.4f}", flush=True)
+            _log(f"[recognition/{args.arch}] step {step:6d}  val CER {cer:.4f}", flush=True)
             # Checkpoint at every validation: long fine-tunes stay
             # resumable/harvestable if the run is cut short.
             _save(state, step)
 
-    # u8 batches: crops cross to the device raw and normalize there.
-    batches = ds.batches(args.batch, seed=args.data_seed + 1, as_u8=True)
+    # u8 batches: crops cross to the device raw and normalize there. Every
+    # rank draws the same global batches and keeps its rows.
+    batches = _rows(mesh, ds.batches(args.batch, seed=args.data_seed + 1, as_u8=True))
     record = _run(args, state, step_fn, batches, f"recognition/{args.arch}", 200, validate)
-    _save(state, args.steps)
-    print(f"saved {args.output}")
-    return {**record, "val_cer": cers, "val_size": len(val_labels), "output": str(args.output), "state": state}
+    if main_rank:
+        _save(state, args.steps)
+    _log(f"saved {args.output}")
+    val_size = len(val_labels) if main_rank else 0
+    return {**record, "val_cer": cers, "val_size": val_size, "output": str(args.output), "state": state}
 
 
-def train_detection(args) -> dict:
-    """Train the U-Net detector as ``args`` say; returns the run's record."""
+def train_detection(args, mesh: Optional[Mesh] = None) -> dict:
+    """Train the U-Net detector as ``args`` say (over `mesh`, where given);
+    returns the run's record."""
     cache = (
         Path(args.cache)
         if args.cache
         else CACHE_DIR / f"det_{args.samples}_s{args.data_seed}.npz"
     )
-    print(f"dataset: {args.samples} pages (cache {cache})", flush=True)
+    _log(f"dataset: {args.samples} pages (cache {cache})", flush=True)
     t0 = time.time()
     kw = _render_kwargs(args) or {}
     det_kw = {
@@ -245,40 +291,42 @@ def train_detection(args) -> dict:
         }.items()
         if v is not None
     }
-    ds = DetectionDataset(
+    ds = _main_rank_first(mesh, lambda: DetectionDataset(
         args.samples, page_hw=DEFAULT_INPUT_HW, seed=args.data_seed, cache_path=cache,
         log_every=500, extra_caches=args.extra_cache or None,
         render_kwargs=det_kw or None,
-    )
-    print(f"dataset ready in {time.time() - t0:.0f}s ({len(ds)} pages)", flush=True)
+    ))
+    _log(f"dataset ready in {time.time() - t0:.0f}s ({len(ds)} pages)", flush=True)
     if args.render_only:
         return {"cache": str(cache), "samples": len(ds)}
 
     optimizer = recipe(args, 150)
-    step_fn = make_detection_train_step(optimizer)
+    step_fn = make_detection_train_step(optimizer, mesh=mesh)
 
     init_params = None
     if args.init_from:
         init_params, _ = load_params(args.init_from)
-        print(f"warm start from {args.init_from}", flush=True)
+        _log(f"warm start from {args.init_from}", flush=True)
 
-    state = init_detection_state(optimizer, init_params=init_params, device=args.device)
+    state = init_detection_state(optimizer, init_params=init_params, device=args.device if mesh is None else None,
+                                 mesh=mesh)
     # u8 batches: images/masks cross to the device raw and normalize there.
-    batches = ds.batches(args.batch, seed=args.data_seed + 1, as_u8=True)
+    batches = _rows(mesh, ds.batches(args.batch, seed=args.data_seed + 1, as_u8=True))
     record = _run(args, state, step_fn, batches, "detection", 100)
     out = Path(args.output)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    save_params(
-        out,
-        params_to_jax(state.model.net.state_dict()),
-        meta={
-            "kind": "detection",
-            "input_hw": list(DEFAULT_INPUT_HW),
-            "trained_on": "styled synthetic rendered pages (ocrs_tpu_torch.train.render)",
-            "steps": args.steps,
-        },
-    )
-    print(f"saved {out}")
+    if is_main_rank():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        save_params(
+            out,
+            params_to_jax(state.model.net.state_dict()),
+            meta={
+                "kind": "detection",
+                "input_hw": list(DEFAULT_INPUT_HW),
+                "trained_on": "styled synthetic rendered pages (ocrs_tpu_torch.train.render)",
+                "steps": args.steps,
+            },
+        )
+    _log(f"saved {out}")
     return {**record, "output": str(out), "state": state}
 
 
@@ -363,9 +411,28 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     return args
 
 
+def torchrun_mesh(args) -> Optional[Mesh]:
+    """Under ``torchrun`` (``WORLD_SIZE`` set): join the process group on
+    this rank's device (``cuda:LOCAL_RANK``, or the CPU with ``--device
+    cpu``) and return the data mesh; otherwise None."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    device = local_device("cpu" if args.device == "cpu" else "cuda")
+    if args.device not in (None, "cpu", "cuda") and torch.device(args.device) != device:
+        raise ValueError(f"under torchrun each rank trains on its own device ({device}), not {args.device}")
+    return make_mesh(device=init_process_group(device))
+
+
 def main(argv: Optional[list[str]] = None) -> dict[str, Any]:
     args = parse_args(argv)
-    return train_recognition(args) if args.model == "recognition" else train_detection(args)
+    mesh = torchrun_mesh(args)
+    try:
+        if args.model == "recognition":
+            return train_recognition(args, mesh=mesh)
+        return train_detection(args, mesh=mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

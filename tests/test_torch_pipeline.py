@@ -93,13 +93,14 @@ def test_pipeline_constructor_mirrors_jax_without_mesh():
 
     jparams = inspect.signature(JaxPagePipeline.__init__).parameters
     pparams = inspect.signature(ot.PagePipeline.__init__).parameters
-    assert [n for n in jparams if n != "mesh"] == [n for n in pparams if n != "device"]
+    # The port also takes `mesh`, in the JAX pipeline's place (its sharded
+    # runs are tests/test_torch_parallel_pipeline.py's).
+    assert list(jparams) == [n for n in pparams if n != "device"]
     for name, p in pparams.items():
         if name not in ("self", "device", "detector_params"):
             assert p.default == jparams[name].default, name
-    assert "mesh" not in pparams and pparams["device"].default is None
-    with pytest.raises(TypeError):
-        _fake_pipe(mesh=None)
+    assert pparams["mesh"].default is None and pparams["device"].default is None
+    assert _fake_pipe(mesh=None)._shards is None
     with pytest.raises(ValueError, match="transport"):
         _fake_pipe(transport="pcie")
     assert ot.PagePipeline is tpipe.PagePipeline and ot.PageResult is tpipe.PageResult

@@ -88,3 +88,17 @@ def test_ctc_loss_without_an_alignment_is_infinite():
     # PyTorch inf (documented in ctc_loss).
     lp = torch.log_softmax(torch.zeros(2, 1, 4), -1)
     assert torch.isinf(tlosses.ctc_loss(lp, torch.tensor([[1, 2, 3]]), torch.tensor([3])))
+
+
+@pytest.mark.parametrize("bad", [4, 97, -1])
+def test_ctc_loss_refuses_labels_outside_the_classes(bad):
+    # F.ctc_loss does not check its targets on the CPU and writes out of
+    # bounds for a class past the last (a 97-class batch on a 24-class head
+    # corrupted the heap): the port refuses host labels outside [0, C).
+    lp = torch.log_softmax(torch.zeros(8, 2, 4), -1)
+    labels = np.array([[1, 2, 0], [3, bad, 1]], np.int32)
+    with pytest.raises(ValueError, match="labels must lie in"):
+        tlosses.ctc_loss(lp, labels, np.array([2, 3]))
+    with pytest.raises(ValueError, match="labels must lie in"):
+        tlosses.ctc_loss(lp, torch.from_numpy(labels), torch.tensor([2, 3]))
+    assert torch.isfinite(tlosses.ctc_loss(lp, np.array([[1, 2, 0], [3, 3, 1]]), np.array([2, 3])))

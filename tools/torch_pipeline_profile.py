@@ -3,7 +3,7 @@
 
 Run from a checkout of the repository on a machine with one NVIDIA GPU:
 
-    python3 tools/torch_pipeline_profile.py [--groups 3] [--transport hbm] [--device-geometry]
+    python3 tools/torch_pipeline_profile.py [--groups 3] [--transport hbm] [--device-geometry] [--shards 2]
 
 It draws the full-size pages of ``chip_smoke.py`` (groups of 16 pages of
 3508 x 2480 uint8), runs ``PagePipeline.process_stream`` with the shipped
@@ -14,8 +14,12 @@ second under the profiler, the summed device time of all kernels and copies
 so it is an upper bound), the kernels launched and the loop flags read from
 the card per group, and the twelve kernels that took most of the time.
 ``--device-geometry`` runs the pipeline with ``run_table_geometry=False``
-(labelling and rect fitting on the card, page by page). With ``--trace DIR``
-the Chrome trace is written there.
+(labelling and rect fitting on the card, page by page). ``--shards N`` runs
+it under ``make_data_mesh(devices=["cuda:0"] * N)``: N shards of each group
+on the one card, each on its own thread and stream. The object also lists
+the twelve host operations and runtime calls that took most of the host's
+time (self time, summed over threads). With ``--trace DIR`` the Chrome trace
+is written there.
 """
 
 from __future__ import annotations
@@ -39,11 +43,13 @@ def main() -> int:
     from ocrs_tpu_torch import DEFAULT_ALPHABET, PagePipeline
     from ocrs_tpu_torch.models.weights import load_detection_model, load_recognition_model
     from ocrs_tpu_torch.ops.connected_components import loop_counts
+    from ocrs_tpu_torch.parallel.sharding import make_data_mesh
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--groups", type=int, default=3)
     parser.add_argument("--transport", default="hbm")
     parser.add_argument("--device-geometry", action="store_true")
+    parser.add_argument("--shards", type=int, default=1)
     parser.add_argument("--trace", default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -58,6 +64,7 @@ def main() -> int:
         DEFAULT_ALPHABET,
         transport=args.transport,
         run_table_geometry=not args.device_geometry,
+        mesh=make_data_mesh(devices=["cuda:0"] * args.shards) if args.shards > 1 else None,
     )
     pipe.process_stream(groups[:2])
     torch.cuda.synchronize()
@@ -70,7 +77,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
     if args.trace:
         Path(args.trace).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(args.trace) / "pipeline_trace.json"))
+        prof.export_chrome_trace(str(Path(args.trace) / f"pipeline_trace_shards{args.shards}.json"))
     # Rows of the device itself (kernels and copies), not those of the
     # operators that launched them, which carry the same time once more.
     rows = []
@@ -81,6 +88,8 @@ def main() -> int:
         if device_us > 0 and e.device_type != torch.autograd.DeviceType.CPU:
             rows.append((device_us, e.count, e.key))
     rows.sort(reverse=True)
+    host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  reverse=True)
     device_s = sum(r[0] for r in rows) / 1e6
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -93,6 +102,7 @@ def main() -> int:
                 "transport": args.transport,
                 "run_table_geometry": not args.device_geometry,
                 "groups": args.groups,
+                "shards": args.shards,
                 "pages": args.groups * chip_smoke.GROUP_PAGES,
                 "wall_s_under_profiler": wall,
                 "pages_per_s_under_profiler": args.groups * chip_smoke.GROUP_PAGES / wall,
@@ -101,6 +111,7 @@ def main() -> int:
                 "kernels_and_copies_per_group": sum(r[1] for r in rows) / args.groups,
                 "loop_flag_reads_per_group": loop_counts["host_syncs"] / args.groups,
                 "top_kernels": [{"ms": r[0] / 1e3, "count": r[1], "name": r[2][:120]} for r in rows[:12]],
+                "top_host_ops": [{"ms": r[0] / 1e3, "count": r[1], "name": r[2][:120]} for r in host[:12]],
             }
         )
     )
