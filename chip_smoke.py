@@ -179,6 +179,22 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
      dtype, its mean CTC loss over that cache is below the shipped
      weights', and an engine on the card reads the text page with it as the
      shipped weights read it.
+  17. tools: the repository's tools, ported (``ocrs_tpu_torch/tools``), on
+     the committed page sets of ``test-data/eval`` (this machine need not
+     draw) with the shipped weights: ``eval_accuracy`` on the 8 styled
+     pages of seed 1234 (its command, then each page alone) and
+     ``eval_independent`` on its 9 pages, each F1 of the tool's result
+     within ``TOOLS_F1_TOL`` of the JAX tools' on the CPU
+     (``reference.json``; per-page differences are reported);
+     ``eval_accuracy`` with a CRNN at hidden 192 (random, seed 0) on one
+     page: GRU launches counted (zeroed just before, read just after) and
+     the kernel on the recurrent layer's own input against the plain
+     version; ``test_e2e``'s golden tier through the CLI on the card in a
+     process of its own; ``imgrep`` over a directory holding the text page
+     (a match exits 0 with its line, a word that is not there exits 1);
+     ``soup`` of the shipped recognizer and ``weights/cand_r5.npz``, every
+     leaf the float64 average made here, its engine reading the text page;
+     ``profile_stages`` over the 16 committed pages of 3508 x 2480.
 
 Then it prints the kernels line, the card's name and power limit, and, as
 the last line, ``{"ok": true, "device": {...}}``. A failed check exits with
@@ -2008,6 +2024,191 @@ def parallel_phase(dev, det, conv, rec, bench_group, host_groups, text_input, sh
     return report, launches_total
 
 
+# The tools phase: the repository's tools, ported (ocrs_tpu_torch/tools), on
+# the card at full width from the committed page sets of test-data/eval (the
+# card's machine cannot draw them) and the shipped weights.
+EVAL_DATA = REPO / "test-data" / "eval"
+# F1 of the tools' results on the card against the JAX tools' on the CPU
+# (reference.json), on the same pages and weights. On the CPU the port
+# matched them exactly on all 17 pages (tests/test_torch_tools_*.py hold
+# 0.02); on the card the bf16 U-Net and recognizer sum in other orders
+# (single mask pixels, near-tie frames), which may move a word in fifty.
+TOOLS_F1_TOL = 0.02
+
+
+def tool_json(fn, argv):
+    """A tool's `main(argv)` in this process: (exit code, the JSON object of
+    its last line of standard output, seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    seconds = time.perf_counter() - t0
+    text = out.getvalue().strip()
+    # The object starts on the last line that opens with "{" (eval_accuracy
+    # prints it indented over several lines).
+    return rc, json.loads(text[text.rfind("\n{") + 1 :]), seconds
+
+
+def f1_deltas(got, want):
+    """|F1 difference| of each page of eval_independent's results, by group."""
+    return {
+        g: [abs(a["f1"] - b["f1"]) for a, b in zip(got[g], want[g])] for g in want if g != "overall"
+    }
+
+
+def tools_phase(dev, det, text_input, shipped_text):
+    """The ported tools on the card. Returns (report, GRU launches, the
+    kernel's max |err| on the tool's own GRU input)."""
+    import numpy as np
+    import torch
+
+    from ocrs_tpu_torch.engine import DEFAULT_ALPHABET, OcrEngine, OcrEngineParams
+    from ocrs_tpu_torch.models import weights
+    from ocrs_tpu_torch.models.recognition_net import RecognitionModel
+    from ocrs_tpu_torch.ops import gru
+    from ocrs_tpu_torch.png import write_png
+    from ocrs_tpu_torch.tools import eval_accuracy, eval_independent, imgrep, profile_stages, soup
+
+    t_phase = time.perf_counter()
+    report = {}
+    ref = json.loads((EVAL_DATA / "reference.json").read_text())
+    det_path, rec_path = str(REPO / "weights" / "text-detection.npz"), str(REPO / "weights" / "text-recognition.npz")
+    accuracy_file = str(EVAL_DATA / "accuracy_s1234_p8.npz")
+    # The golden CLI tier runs in a process of its own (two CLI processes in
+    # turn) while this one works.
+    e2e = subprocess.Popen(
+        [sys.executable, "-m", "ocrs_tpu_torch.tools.test_e2e"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        # eval_accuracy: the tool's command, then each page alone.
+        rc, acc, seconds = tool_json(
+            eval_accuracy.main, ["--detect", det_path, "--rec", rec_path, "--pages-from", accuracy_file]
+        )
+        want = ref["eval_accuracy"]["result"]
+        engine = eval_accuracy.build_engine(det_path, rec_path, dev)
+        pages = eval_accuracy.read_pages(accuracy_file, 8, 1234)
+        per_page = [eval_accuracy.score_pages(engine, [p], 0.3, 1) for p in pages]
+        deltas = {
+            kind: [abs(a[kind]["f1"] - b[kind]["f1"]) for a, b in zip(per_page, ref["eval_accuracy"]["per_page"])]
+            for kind in ("detection", "end_to_end")
+        }
+        for kind in ("detection", "end_to_end"):
+            check(
+                rc == 0 and abs(acc[kind]["f1"] - want[kind]["f1"]) <= TOOLS_F1_TOL,
+                f"tools: eval_accuracy {kind} F1 {acc[kind]['f1']} within {TOOLS_F1_TOL} of the JAX tool's {want[kind]['f1']}",
+            )
+        report["eval_accuracy"] = {
+            "result": acc, "reference": want, "seconds": seconds, "words": sum(len(w) for _, w in pages),
+            "per_page_f1": {kind: [p[kind]["f1"] for p in per_page] for kind in ("detection", "end_to_end")},
+            "per_page_abs_f1_diff": deltas, "atol": TOOLS_F1_TOL,
+        }
+
+        # eval_independent with its defaults on the committed groups.
+        rc, ind, seconds = tool_json(eval_independent.main, ["--pages-from", str(EVAL_DATA / "independent.npz")])
+        want = ref["eval_independent"]["result"]
+        check(
+            rc == 0 and ind["overall"]["pages"] == want["overall"]["pages"]
+            and abs(ind["overall"]["f1"] - want["overall"]["f1"]) <= TOOLS_F1_TOL,
+            f"tools: eval_independent overall F1 {ind['overall']['f1']} within {TOOLS_F1_TOL} of the JAX tool's {want['overall']['f1']}",
+        )
+        report["eval_independent"] = {
+            "result": ind, "reference_overall": want["overall"], "seconds": seconds,
+            "per_page_abs_f1_diff": f1_deltas(ind, want), "atol": TOOLS_F1_TOL,
+        }
+
+        # eval_accuracy with a CRNN at hidden 192 (random, seed 0), on one
+        # page: the tool reaches the GRU kernel. The launches are counted
+        # from zero; the recurrent layer's input is kept.
+        crnn = RecognitionModel.create(0, arch="crnn")
+        crnn_path = REPO / "build" / "tools_crnn_h192.npz"
+        crnn_path.parent.mkdir(exist_ok=True)
+        weights.save_params(
+            crnn_path, weights.params_to_jax(crnn.net.state_dict()),
+            meta={"kind": "recognition", "arch": "crnn", "hidden": 192, "n_classes": 97, "alphabet": DEFAULT_ALPHABET},
+        )
+        gru_inputs = []
+        load_recognition_model = weights.load_recognition_model
+
+        def load_with_hook(source):
+            model = load_recognition_model(source)
+            model.net.gru1.register_forward_hook(lambda m, inp, out: gru_inputs.append(inp[0].detach()))
+            return model
+
+        weights.load_recognition_model = load_with_hook
+        try:
+            reset_gru_counts()
+            rc, crnn_acc, seconds = tool_json(
+                eval_accuracy.main,
+                ["--detect", det_path, "--rec", str(crnn_path), "--pages", "1", "--pages-from", accuracy_file],
+            )
+            torch.cuda.synchronize()
+            launches = gru.bigru_sequence.launches + gru.gru_sequence.launches
+        finally:
+            weights.load_recognition_model = load_recognition_model
+        check(rc == 0 and launches >= 2, f"tools: eval_accuracy with a CRNN launches the GRU kernel ({launches})")
+        check(bool(gru_inputs), "tools: the CRNN's GRU input was captured")
+        model = weights.load_recognition_model(crnn_path).to(dev)
+        ops = bigru_operands(model.net.gru1, gru_inputs[0])
+        kernel_err = float((gru.bigru_sequence(*ops) - gru.bigru_sequence_reference(*ops)).abs().max())
+        check(kernel_err <= GRU_ATOL, f"tools: the kernel on the tool's GRU input vs plain {kernel_err} <= {GRU_ATOL}")
+        report["eval_accuracy_crnn"] = {
+            "result": crnn_acc, "seconds": seconds, "gru_launches": launches,
+            "gru_input_shape": list(gru_inputs[0].shape), "kernel_vs_plain": kernel_err,
+        }
+        del model, crnn, gru_inputs
+
+        # imgrep over a directory holding the text page.
+        grep_dir = Path(tempfile.mkdtemp(prefix="imgrep-", dir=REPO / "build"))
+        write_png(grep_dir / "text.png", text_page())
+        grep = {}
+        for pattern, want_rc in (("Section 12 notes", 0), ("zebra", 1)):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = imgrep.main([pattern, str(grep_dir)])
+            grep[pattern] = {"exit": rc, "lines": out.getvalue().splitlines()}
+            check(rc == want_rc, f"tools: imgrep {pattern!r} exits {want_rc} ({rc})")
+        check(
+            grep["Section 12 notes"]["lines"] == [f"{grep_dir / 'text.png'}:1: Section 12 notes"],
+            f"tools: imgrep prints the matching line ({grep['Section 12 notes']['lines']})",
+        )
+        report["imgrep"] = grep
+        shutil.rmtree(grep_dir, ignore_errors=True)
+
+        # soup of the shipped recognizer and its round-5 fine-tune.
+        soup_path = REPO / "build" / "tools_soup.npz"
+        parents = [rec_path, str(REPO / "weights" / "cand_r5.npz")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            soup.main([*parents, "-o", str(soup_path)])
+        flat, meta = weights.load_flat(soup_path)
+        a, b = (weights.load_flat(p)[0] for p in parents)
+        leaves_equal = flat.keys() == a.keys() and all(
+            np.array_equal(flat[k], (0 + 0.5 * a[k].astype(np.float64) + 0.5 * b[k].astype(np.float64)).astype(a[k].dtype))
+            for k in a
+        )
+        check(leaves_equal, "tools: every soup leaf is the float64 average of its parents' leaves")
+        soup_engine = OcrEngine(
+            OcrEngineParams(detection_model=det, recognition_model=weights.load_recognition_model(soup_path)), device=dev
+        )
+        soup_text = soup_engine.get_text(text_input)
+        check(soup_text == shipped_text, f"tools: the soup reads the text page ({soup_text!r})")
+        report["soup"] = {"leaves": len(flat), "leaves_equal": leaves_equal, "soup_weights": meta.get("soup_weights"), "text": soup_text}
+
+        # profile_stages over the 16 committed pages of 3508 x 2480.
+        rc, prof, seconds = tool_json(profile_stages.main, ["--pages-from", str(EVAL_DATA / "profile_p16.npz")])
+        check(rc == 0 and prof["pages"] == [16, 3508, 2480] and len(prof["rows"]) == 19,
+              f"tools: profile_stages timed its 19 rows on 16 full-size pages ({prof['pages']}, {len(prof['rows'])})")
+        report["profile_stages"] = {**prof, "seconds": seconds}
+    finally:
+        e2e_out, e2e_err = e2e.communicate(timeout=600)
+    check(e2e.returncode == 0 and "all golden tests passed" in e2e_out,
+          f"tools: test_e2e's golden tier passes on the card ({e2e.returncode}: {e2e_out[-300:]} {e2e_err[-500:]})")
+    report["test_e2e"] = {"exit": e2e.returncode, "stdout": e2e_out.splitlines()}
+    report["seconds"] = time.perf_counter() - t_phase
+    return report, launches, kernel_err
+
+
 def main() -> int:
     import torch
 
@@ -2795,6 +2996,10 @@ def main() -> int:
     )
     emit({"phase": "parallel", "card": smi, **parallel_report})
 
+    # 17. The repository's tools, ported ---------------------------------------------
+    tools_report, tools_launches, tools_err = tools_phase(dev, det, inputs["text"], d_texts["text"])
+    emit({"phase": "tools", "card": smi, **tools_report})
+
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
@@ -2807,16 +3012,18 @@ def main() -> int:
                     "source": "ocrs_tpu_torch/csrc/gru_seq.cu",
                     "replaces": "ocrs_tpu/ops/gru_pallas.py:41",
                     "launches": launches + pipe_launches + sum(serve_launches.values()) + train_launches
-                    + trainer_launches + convert_launches + parallel_launches,
+                    + trainer_launches + convert_launches + parallel_launches + tools_launches,
                     "launches_by_path": {
                         "engine": launches, "pipeline_crnn": pipe_launches, **serve_launches, "train": train_launches,
                         "train_driver": trainer_launches, "convert": convert_launches, "parallel": parallel_launches,
+                        "tools": tools_launches,
                     },
-                    "launch_sites": "the caller's thread (engine, pipeline), the batching service's worker "
+                    "launch_sites": "the caller's thread (engine, pipeline, tools), the batching service's worker "
                     "thread (serve_worker), the HTTP server's handler threads (serve_handlers), the shard "
                     "threads of PagePipeline(mesh=) and spawned training ranks (parallel)",
-                    "max_abs_err": max(max_err, worker_err, *(v["max_abs_err"] for v in large.values())),
+                    "max_abs_err": max(max_err, worker_err, tools_err, *(v["max_abs_err"] for v in large.values())),
                     "max_abs_err_on_serve_worker_input": worker_err,
+                    "max_abs_err_on_tools_input": tools_err,
                     "shape": {"T": GRU_T, "N": GRU_N, "H": GRU_H},
                     "ms": kernel_ms,
                     "plain_ms": plain_ms,

@@ -180,13 +180,14 @@ def _load_models(args):
     return load_detection_model(args.detect_model), load_recognition_model(args.rec_model)
 
 
-def _device(args):
-    """The engine's device: --device, CUDA by default. Without CUDA a run on
-    CUDA ends with the engine's message; there is no fallback to the CPU."""
+def device_or_exit(device):
+    """The engine's device: `device` (a --device flag), CUDA when None.
+    Without CUDA a run on CUDA ends with the engine's message; there is no
+    fallback to the CPU. The tools of :mod:`.tools` take it too."""
     from .engine import resolve_device
 
     try:
-        return resolve_device(args.device)
+        return resolve_device(device)
     except RuntimeError as exc:
         raise SystemExit(f"error: {exc} (on the command line: --device cpu)") from exc
 
@@ -214,7 +215,7 @@ def main(argv=None) -> int:
                 alphabet=args.alphabet,
                 allowed_chars=args.allowed_chars,
             ),
-            device=_device(args),
+            device=device_or_exit(args.device),
         )
         server = serve(engine, host="0.0.0.0", port=args.serve)
         print(
@@ -254,7 +255,7 @@ def main(argv=None) -> int:
             min_line_confidence=args.min_line_conf,
             rule_glyph=args.rule_glyph,
         ),
-        device=_device(args),
+        device=device_or_exit(args.device),
     )
 
     inp = engine.prepare_input(ImageSource.from_tensor(image, DimOrder.HWC))

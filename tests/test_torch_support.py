@@ -119,3 +119,45 @@ def assert_same_ocr_json(got: dict, want: dict, atol: float = 1.0) -> None:
         assert [w["text"] for w in gl["words"]] == [w["text"] for w in wl["words"]]
         for a, b in [(gl, wl)] + list(zip(gl["words"], wl["words"])):
             np.testing.assert_allclose(np.array(a["vertices"]), np.array(b["vertices"]), atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# Shared by the tests of the tools (``ocrs_tpu_torch/tools``).
+# ---------------------------------------------------------------------------
+
+EVAL_DATA = REPO / "test-data" / "eval"
+
+
+def repo_tool(name: str):
+    """The script ``tools/<name>.py`` (a JAX tool, or the writer of
+    ``test-data/eval/``) as a module, under its own name on ``sys.path`` as
+    the JAX tools import each other; loaded once."""
+    import importlib
+    import sys
+
+    tools_dir = str(REPO / "tools")
+    if tools_dir not in sys.path:
+        sys.path.insert(0, tools_dir)
+    return importlib.import_module(name)
+
+
+#: F1 of a ported tool's result against the JAX tool's on the CPU, on the
+#: same pages and weights. Measured on all 17 committed pages (the 8 of
+#: eval_accuracy, the 9 of eval_independent): no difference, page by page.
+#: The bound leaves room for one word in fifty to read differently at a
+#: bf16 near-tie (PyTorch and XLA sum in different orders); detection
+#: counts are held exactly.
+TOOLS_F1_TOL = 0.02
+
+
+def assert_independent_close(got: dict, want: dict) -> None:
+    """Two results of eval_independent: the same groups and pages, each
+    page's F1 and the overall F1 within TOOLS_F1_TOL."""
+    assert got.keys() == want.keys()
+    for group in want:
+        rows = [want[group]] if group == "overall" else want[group]
+        grows = [got[group]] if group == "overall" else got[group]
+        assert len(grows) == len(rows)
+        for g, w in zip(grows, rows):
+            assert abs(g["f1"] - w["f1"]) <= TOOLS_F1_TOL, (group, g, w)
+    assert got["overall"]["pages"] == want["overall"]["pages"]
