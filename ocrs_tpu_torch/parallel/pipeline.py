@@ -734,7 +734,7 @@ class PagePipeline:
 
     def _collect_recognition(self, per_page_lines, inflight) -> list[list[Optional[TextLine]]]:
         """Wait for each batch's copy, finish the decode on the host and
-        assemble the lines of every page."""
+        assemble the lines of every page, all pages in one pass."""
         greedy = isinstance(self._decode, Greedy)
         any_voting = False
         per_page_results: list[list[_LineResult]] = [[] for _ in per_page_lines]
@@ -768,13 +768,14 @@ class PagePipeline:
                     )
                 )
 
-        out: list[list[Optional[TextLine]]] = []
-        for results in per_page_results:
+        for pg, results in enumerate(per_page_results):
             if any_voting:
-                results = _pick_direction_variants(results)
+                results = per_page_results[pg] = _pick_direction_variants(results)
             results.sort(key=lambda r: r.line.index)
-            out.append(_text_lines_from_results(results, self._alphabet))
-        return out
+        # One assembly over the lines of every page, cut back into pages.
+        flat = _text_lines_from_results([r for results in per_page_results for r in results], self._alphabet)
+        ends = np.cumsum([len(results) for results in per_page_results]).tolist()
+        return [flat[a:b] for a, b in zip([0, *ends], ends)]
 
     def _run_pooled_batch(self, pages_dev, batch, group_width, greedy, with_conf):
         """Axis-aligned crops of one pooled batch -> the device outputs of

@@ -230,54 +230,85 @@ def _round_half_away(y: np.ndarray) -> np.ndarray:
     return np.sign(y) * np.floor(np.abs(y) + 0.5)
 
 
+def _polygon_slices(
+    polys: Sequence[np.ndarray], poly_of: np.ndarray, min_x: np.ndarray, max_x: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Bounding rect of the slice x in [min_x[c], max_x[c]] of
+    ``polys[poly_of[c]]`` for every slice c at once (recognition.rs:162-193):
+    float64 ``(top, left, bottom, right, hit)``, where ``hit[c]`` is False
+    when no edge reaches the slice (its four edges are then meaningless).
+
+    The polygons are padded to the largest vertex count with edges that
+    reach no slice. Each slice keeps the edges of its own polygon that reach
+    it, in polygon order, and only those go through upstream's float64
+    arithmetic; the edges are the same, so are the rects."""
+    vs = np.array([len(p) for p in polys], dtype=np.int64)
+    v = max(int(vs.max(initial=0)), 1)
+    col = np.arange(v)
+    edge = col[None, :] < vs[:, None]  # (P, V): real edges
+    p1 = np.zeros((len(polys), v, 2))
+    if vs.sum():
+        p1[edge] = np.concatenate([p for p in polys if len(p)])
+    # Each vertex's successor on its own polygon: np.roll(poly, -1).
+    nxt = np.where(col[None, :] + 1 < vs[:, None], col[None, :] + 1, 0)
+    p2 = np.take_along_axis(p1, nxt[..., None], axis=1)
+    # rightwards(): endpoints ordered by increasing x.
+    swap = p1[..., 0] > p2[..., 0]
+    x1 = np.where(edge, np.where(swap, p2[..., 0], p1[..., 0]), np.inf)
+    y1 = np.where(swap, p2[..., 1], p1[..., 1])
+    x2 = np.where(edge, np.where(swap, p1[..., 0], p2[..., 0]), -np.inf)
+    y2 = np.where(swap, p1[..., 1], p2[..., 1])
+
+    # An edge reaches a slice unless both its ends lie left of it or both
+    # right of it; with x1 <= x2 that is x2 >= min_x and x1 <= max_x.
+    mn = np.asarray(min_x, dtype=np.float64)
+    mx = np.asarray(max_x, dtype=np.float64)
+    keep = (x2[poly_of] >= mn[:, None]) & (x1[poly_of] <= mx[:, None])  # (C, V)
+    c, e = np.nonzero(keep)  # kept (slice, edge) pairs, by slice then edge
+    at = poly_of[c] * v + e
+    x1, y1, x2, y2 = (a.ravel()[at] for a in (x1, y1, x2, y2))
+    mn, mx = mn[c], mx[c]
+    nonvert = x1 != x2
+    with np.errstate(divide="ignore", invalid="ignore"):
+        slope = np.where(nonvert, (y2 - y1) / (x2 - x1), 0.0)
+
+    def truncate(xq, x_dflt, y_dflt):
+        valid = nonvert & (xq >= x1) & (xq <= x2)
+        yq = _round_half_away(y1 + (xq - x1) * slope)
+        return np.where(valid, xq, x_dflt), np.where(valid, yq, y_dflt)
+
+    sx, sy = truncate(mn, x1, y1)
+    ex, ey = truncate(mx, x2, y2)
+
+    # Each slice's kept edges are one run of the pairs.
+    n = np.bincount(c, minlength=len(poly_of))
+    hit = n > 0
+    first = (np.cumsum(n) - n)[hit]
+
+    def per_slice(ufunc, a, b, empty):
+        out = np.full(len(poly_of), empty)
+        out[hit] = ufunc.reduceat(ufunc(a, b), first)
+        return out
+
+    return (
+        per_slice(np.minimum, sy, ey, np.inf),
+        per_slice(np.minimum, sx, ex, np.inf),
+        per_slice(np.maximum, sy, ey, -np.inf),
+        per_slice(np.maximum, sx, ex, -np.inf),
+        hit,
+    )
+
+
 def polygon_slice_bounding_rects(
     poly: np.ndarray, ranges: np.ndarray
 ) -> list[Optional[Rect]]:
     """Bounding rect of the slice x in [min_x, max_x] of `poly`, for each of
     the (C, 2) `ranges` at once; None where no edge reaches the slice
     (recognition.rs:162-193)."""
-    n = len(poly)
-    if n == 0 or len(ranges) == 0:
-        return [None] * len(ranges)
-    p1 = poly.astype(np.float64)
-    p2 = np.roll(p1, -1, axis=0)
-    # rightwards(): endpoints ordered by increasing x.
-    swap = p1[:, 0] > p2[:, 0]
-    x1 = np.where(swap, p2[:, 0], p1[:, 0])[None, :]  # (1, E)
-    y1 = np.where(swap, p2[:, 1], p1[:, 1])[None, :]
-    x2 = np.where(swap, p1[:, 0], p2[:, 0])[None, :]
-    y2 = np.where(swap, p1[:, 1], p2[:, 1])[None, :]
-
-    mn = ranges[:, 0:1].astype(np.float64)  # (C, 1)
-    mx = ranges[:, 1:2].astype(np.float64)
-    keep = ~(((x1 < mn) & (x2 < mn)) | ((x1 > mx) & (x2 > mx)))  # (C, E)
-
-    with np.errstate(divide="ignore", invalid="ignore"):
-        slope = (y2 - y1) / (x2 - x1)
-    nonvert = x1 != x2
-
-    def truncate(xq, x_dflt, y_dflt):
-        valid = nonvert & (xq >= x1) & (xq <= x2)
-        with np.errstate(invalid="ignore"):
-            yq = _round_half_away(y1 + (xq - x1) * np.where(nonvert, slope, 0.0))
-        return (
-            np.where(valid, np.broadcast_to(xq, valid.shape), x_dflt),
-            np.where(valid, yq, y_dflt),
-        )
-
-    sx, sy = truncate(mn, x1, y1)
-    ex, ey = truncate(mx, x2, y2)
-
-    big = np.inf
-    top = np.where(keep, np.minimum(sy, ey), big).min(axis=1)
-    left = np.where(keep, np.minimum(sx, ex), big).min(axis=1)
-    bottom = np.where(keep, np.maximum(sy, ey), -big).max(axis=1)
-    right = np.where(keep, np.maximum(sx, ex), -big).max(axis=1)
-    any_edge = keep.any(axis=1)
-    return [
-        Rect.from_tlbr(top[c], left[c], bottom[c], right[c]) if any_edge[c] else None
-        for c in range(len(ranges))
-    ]
+    if len(ranges) == 0:
+        return []
+    cols = _polygon_slices([poly], np.zeros(len(ranges), np.int64), ranges[:, 0], ranges[:, 1])
+    return [Rect(t, l, b, r) if hit else None for t, l, b, r, hit in zip(*(c.tolist() for c in cols))]
 
 
 def polygon_slice_bounding_rect(
@@ -825,37 +856,65 @@ def _text_line_from_rotated_result(result: _LineResult, alphabet: str) -> Option
 
 def _text_lines_from_results(results: list[_LineResult], alphabet: str) -> list[Optional[TextLine]]:
     """Build TextLines with per-char rects from decode results
-    (recognition.rs:241-311)."""
-    out: list[Optional[TextLine]] = []
-    for result in results:
+    (recognition.rs:241-311), in the order of `results`; None for a line
+    with no char in bounds.
+
+    The axis-aligned lines are assembled in one pass over all their chars
+    (the page pipeline hands over a whole page group at once); rotated lines
+    go through :func:`_text_line_from_rotated_result`."""
+    out: list[Optional[TextLine]] = [None] * len(results)
+    flat = []
+    for i, result in enumerate(results):
         if result.line.rrect is not None:
-            out.append(_text_line_from_rotated_result(result, alphabet))
-            continue
-        pos, labels = _step_arrays(result.steps)
-        if len(pos) == 0:
-            out.append(None)
-            continue
-        line_rect = result.line.rect
-        x_scale = float(line_rect.width) / float(result.line.resized_width)
-        downsample = round(result.rec_input_len / result.ctc_input_len)
-        pos = pos.astype(np.float64) * downsample
-        end = np.concatenate([pos[1:], [float(result.line.resized_width)]])
-        # nb. upstream truncates (x * scale) BEFORE adding the (integer) rect
-        # left (recognition.rs:264-265); this matters for negative lefts.
-        start_x = int(line_rect.left) + np.trunc(pos * x_scale).astype(np.int64)
-        end_x = int(line_rect.left) + np.trunc(end * x_scale).astype(np.int64)
-        # Characters predicted in the padding region are dropped
-        # (recognition.rs:271-276).
-        in_bounds = start_x < line_rect.right
-        ranges = np.stack([start_x, end_x], axis=1)[in_bounds]
-        rects = polygon_slice_bounding_rects(result.line.poly, ranges)
-        chars: list[TextChar] = []
-        for label, rect in zip(labels[in_bounds].tolist(), rects):
-            assert rect is not None, "invalid X coords"
-            label_idx = label - 1
-            ch = alphabet[label_idx] if 0 <= label_idx < len(alphabet) else "?"
-            chars.append(TextChar(char=ch, rect=rect))
-        out.append(TextLine(chars) if chars else None)
+            out[i] = _text_line_from_rotated_result(result, alphabet)
+        else:
+            flat.append(i)
+    if not flat:
+        return out
+    lines = [results[i].line for i in flat]
+    steps = [_step_arrays(results[i].steps) for i in flat]
+    counts = np.array([len(p) for p, _ in steps], dtype=np.int64)
+    line_of = np.repeat(np.arange(len(flat)), counts)
+    # Per-line columns, gathered to the chars.
+    left = np.array([int(l.rect.left) for l in lines], dtype=np.int64)
+    right = np.array([l.rect.right for l in lines], dtype=np.float64)
+    resized = np.array([l.resized_width for l in lines], dtype=np.float64)
+    x_scale = np.array([l.rect.width for l in lines], dtype=np.float64) / resized
+    downsample = np.array(
+        [round(results[i].rec_input_len / results[i].ctc_input_len) for i in flat], dtype=np.float64
+    )
+    pos = np.concatenate([p for p, _ in steps]).astype(np.float64) * downsample[line_of]
+    labels = np.concatenate([lab for _, lab in steps]).astype(np.int64)
+    # A char ends where the next char of its line starts; the last one at
+    # the line's resized width.
+    end = np.empty_like(pos)
+    end[:-1] = pos[1:]
+    has = counts > 0
+    end[np.cumsum(counts)[has] - 1] = resized[has]
+    # nb. upstream truncates (x * scale) BEFORE adding the (integer) rect
+    # left (recognition.rs:264-265); this matters for negative lefts.
+    scale = x_scale[line_of]
+    start_x = left[line_of] + np.trunc(pos * scale).astype(np.int64)
+    end_x = left[line_of] + np.trunc(end * scale).astype(np.int64)
+    # Characters predicted in the padding region are dropped
+    # (recognition.rs:271-276).
+    in_bounds = start_x < right[line_of]
+    line_of = line_of[in_bounds]
+    top, rleft, bottom, rright, hit = _polygon_slices(
+        [l.poly for l in lines], line_of, start_x[in_bounds], end_x[in_bounds]
+    )
+    assert hit.all(), "invalid X coords"
+    # Label l is alphabet[l - 1]; the blank and labels past the alphabet
+    # read "?".
+    table = ["?", *alphabet]
+    labels = labels[in_bounds]
+    labels[(labels < 1) | (labels > len(alphabet))] = 0
+    rects = map(Rect, top.tolist(), rleft.tolist(), bottom.tolist(), rright.tolist())
+    chars = list(map(TextChar, map(table.__getitem__, labels.tolist()), rects))
+    ends = np.cumsum(np.bincount(line_of, minlength=len(flat))).tolist()
+    for i, a, b in zip(flat, [0, *ends], ends):
+        if b > a:
+            out[i] = TextLine(chars[a:b])
     return out
 
 
