@@ -208,7 +208,15 @@ nothing of JAX or of the JAX package. Each phase prints one JSON line:
      6 (the models' roofline; the CRNN row's GRU launches counted, zeroed
      just before it and read just after, and the kernel held against its
      plain version on the CRNN's own input at N=64, T=608) and config 7;
-     each config's word-F1 gate must pass.
+     each config's word-F1 gate must pass. Then config 5's pipeline, warm,
+     takes one more group through the steps of ``process_stream`` between
+     its explicit waits (``_stage_pages``, ``_detect_tables`` with the
+     tables' copy started, ``_dispatch_recognition``) under
+     ``torch.cuda.set_sync_debug_mode("error")``: none may make the host
+     wait for the card (an error stops the run; ``launch_path_syncs: 0``
+     when none did), and the group's texts must be those of ``process``.
+     A traced pass of six groups on the same pipeline then prints
+     ``detect_net``'s self ms a group (windows 1-3).
 
 Then it prints the kernels line, the card's name and power limit, and, as
 the last line, ``{"ok": true, "device": {...}}``. A failed check exits with
@@ -2250,11 +2258,65 @@ def bench_phase(dev):
           f"bench: the main thread's spans cover >= 95% of the traced window "
           f"({timeline['unattributed_ms']:.3f} of {timeline['window_ms']:.3f} ms unattributed)")
     check(timeline["texts_equal_timed_pass"], "bench: the traced pass reads the timed pass's texts")
+    report["launch_path"] = launch_path_syncs(dev, bench)
     launch = report["config6"]["detail"]["gru_seq_launch"]
     check(launch["crnn_row_launches"] >= 2, f"bench: config 6's CRNN row launched the GRU kernel ({launch['crnn_row_launches']})")
     check(launch["max_abs_err"] <= GRU_ATOL, f"bench: the kernel at N=64, T=608 vs plain {launch['max_abs_err']} <= {GRU_ATOL}")
     report["seconds"] = time.perf_counter() - t_phase
     return report, launch["crnn_row_launches"], launch["max_abs_err"]
+
+
+def launch_path_syncs(dev, bench) -> dict:
+    """Config 5's pipeline, warm, takes one group through the steps that
+    ``process_stream`` runs between its explicit waits, each under
+    ``torch.cuda.set_sync_debug_mode("error")``: an operation there that
+    makes the host wait for the card raises, and the run stops. Returns
+    each step's host ms."""
+    import torch
+
+    from ocrs_tpu_torch import PagePipeline
+    from ocrs_tpu_torch.recognition import _HostCopies
+
+    det, rec, alphabet = bench.load_models()
+    pages, _ = bench.load_pages()
+    pipe = PagePipeline(det, rec, alphabet, max_lines_per_batch=bench.PIPELINE_MAX_LINES, device=dev)
+    want = [r.text for r in pipe.process(pages)]
+    pipe.process_stream([pages])
+    torch.cuda.synchronize()
+    host_ms = {}
+
+    def no_wait(name, fn):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            host_ms[name] = (time.perf_counter() - t0) * 1e3
+
+    def detect():
+        tables, scale = pipe._detect_tables(staged)
+        return _HostCopies((tables,)), scale
+
+    staged = no_wait("stage_pages", lambda: pipe._stage_pages(pages))
+    copies, scale = no_wait("detect_launch", detect)
+    lines = pipe._layout_group(*pipe._tables_to_words_arrays(copies, scale))
+    inflight = no_wait("dispatch_recognition", lambda: pipe._dispatch_recognition(staged, lines))
+    texts = ["\n".join(str(t) for t in page if t is not None) for page in pipe._collect_recognition(lines, inflight)]
+    print("launch_path_syncs: 0", flush=True)  # a wait would have raised above
+    check(texts == want, "bench: the group taken step by step reads what process reads")
+
+    # The U-Net's self time in a traced pass long enough for steady windows.
+    groups = [pages] * 6
+    t0 = time.perf_counter()
+    results = pipe.process_stream(groups)
+    torch.cuda.synchronize()
+    pages_per_sec = len(groups) * len(pages) / (time.perf_counter() - t0)
+    timeline = bench.timeline_pass(pipe, groups, dev, results, [pages_per_sec])
+    detect_net = timeline["host_ms_per_group"][threading.current_thread().name]["detect_net"]
+    print(f"detect_net self ms a group (traced pass, windows 1-3 of 6): {detect_net}", flush=True)
+    check(timeline["texts_equal_timed_pass"], "bench: the launch-path pipeline's traced pass reads its untraced pass's texts")
+    return {"host_ms": host_ms, "syncs": 0, "detect_net_self_ms": detect_net, "pages_per_sec_untimed": pages_per_sec}
 
 
 def main() -> int:

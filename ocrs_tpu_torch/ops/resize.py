@@ -5,11 +5,15 @@ Port of ``ocrs_tpu.ops.resize``. Upstream ocrs resizes with ONNX ``Resize``
 built here as two dense interpolation matrices. ``F.interpolate`` is not used:
 it is not shown to match the half-pixel, edge-clamped law bit for bit, and the
 JAX package's matrices are the reference the tests hold this module against.
+
+On a card the matrices stay on the device (:func:`_device_interp_matrix`): a
+copy from pageable host memory would wait for every kernel queued before it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -34,6 +38,54 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     np.add.at(m, (rows, lo0), 1.0 - frac)
     np.add.at(m, (rows, lo1), frac)
     return m.astype(np.float32)
+
+
+#: Bytes of device memory the cached matrices may hold together, over all
+#: devices. The largest matrix of the page pipeline's detector input at 300
+#: dpi (3508 rows to 800) is 800 x 3508 float32, 11.2 MB.
+DEVICE_CACHE_BYTES = 256 << 20
+
+_device_cache: dict[tuple[int, int, torch.device], torch.Tensor] = {}
+_device_cache_bytes = 0
+_device_cache_lock = threading.Lock()
+
+
+def _device_interp_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`_interp_matrix` as a tensor on `device`, built once per
+    ``(in_size, out_size, device)``.
+
+    The first call copies the matrix to the device and waits for the copy
+    (warm-up); a call that finds it makes no copy and does not wait. The
+    cache holds at most :data:`DEVICE_CACHE_BYTES` (256 MiB) of matrices and
+    drops the oldest first; a matrix larger than that alone is copied on
+    every call. Lookups take no lock; two threads that miss together both
+    build the matrix, and one copy stays. The cached tensors are never
+    written. On the CPU an entry wraps the numpy matrix without a copy."""
+    key = (in_size, out_size, device)
+    m = _device_cache.get(key)
+    if m is None:
+        # Made outside inference mode, where a warm-up may run: a tensor made
+        # there could not be saved for a backward pass (the U-Net trains).
+        with torch.inference_mode(False):
+            m = torch.from_numpy(_interp_matrix(in_size, out_size)).to(device)
+        _cache_insert(key, m)
+    return m
+
+
+def _cache_insert(key, m: torch.Tensor) -> None:
+    global _device_cache_bytes
+    size = m.numel() * m.element_size()
+    if size > DEVICE_CACHE_BYTES:
+        return
+    with _device_cache_lock:
+        if key in _device_cache:
+            return
+        # Dicts keep insertion order: the first keys are the oldest.
+        while _device_cache_bytes + size > DEVICE_CACHE_BYTES:
+            old = _device_cache.pop(next(iter(_device_cache)))
+            _device_cache_bytes -= old.numel() * old.element_size()
+        _device_cache[key] = m
+        _device_cache_bytes += size
 
 
 @contextlib.contextmanager
@@ -66,8 +118,15 @@ def resize_bilinear(
         return img
     if precision not in ("highest", "default"):
         raise ValueError(f"unknown precision {precision!r}")
-    ry = torch.from_numpy(_interp_matrix(in_h, out_h)).to(img.device)
-    rx = torch.from_numpy(_interp_matrix(in_w, out_w)).to(img.device)
+    ry = _device_interp_matrix(in_h, out_h, img.device)
+    rx = _device_interp_matrix(in_w, out_w, img.device)
+    if img.is_cuda:
+        # A cached matrix may be read on another thread's stream than the
+        # one it was made on: its memory is then not reused before this
+        # stream has read it, even once the cache has dropped it.
+        stream = torch.cuda.current_stream(img.device)
+        ry.record_stream(stream)
+        rx.record_stream(stream)
     ctx = _true_f32_matmul() if precision == "highest" else contextlib.nullcontext()
     with ctx:
         # (..., H, W) -> (..., out_h, W) -> (..., out_h, out_w)

@@ -38,6 +38,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -106,17 +107,27 @@ from ..utils.tracing import NO_TRACE, StageTimer, TimelineRecorder
 from .sharding import DataMesh, replicate, shard_batch_dim, split_batch_dim
 
 
+@lru_cache(maxsize=32)
+def _channel_weights(c: int, is_u8: bool, device: torch.device) -> torch.Tensor:
+    """The [C] float32 channel weights of :func:`_normalize_batch` on
+    `device`, copied there once (the copy waits for the device); made
+    outside inference mode, so that autograd may save them."""
+    with torch.inference_mode(False):
+        w = torch.tensor(list(ITU_WEIGHTS) + [0.0] * (c - 3), dtype=torch.float32, device=device)
+        return w / 255.0 if is_u8 else w
+
+
 def _normalize_batch(imgs: torch.Tensor, is_u8: bool) -> torch.Tensor:
-    """[B, H, W, C] -> [B, H, W] normalized greyscale (see preprocess.py)."""
-    c = imgs.shape[-1]
-    weights = [1.0] if c == 1 else list(ITU_WEIGHTS) + [0.0] * (c - 3)
-    w = torch.tensor(weights, dtype=torch.float32, device=imgs.device)
-    if is_u8:
-        w = w / 255.0
-    if c == 1:
-        # One weight: its product in place, without a matrix product's copies
-        # of a stack that is hundreds of megabytes at 300 dpi.
-        return imgs[..., 0].to(torch.float32, copy=True).mul_(w[0]).add_(BLACK_VALUE)
+    """[B, H, W, C] -> [B, H, W] normalized greyscale (see preprocess.py).
+    Nothing here waits for the device."""
+    if imgs.shape[-1] == 1:
+        # One weight, a float32 scalar: its product in place, without a matrix
+        # product's copies of a stack that is hundreds of megabytes at 300 dpi.
+        scale = float(np.float32(1.0) / np.float32(255.0)) if is_u8 else 1.0
+        return imgs[..., 0].to(torch.float32, copy=True).mul_(scale).add_(BLACK_VALUE)
+    w = _channel_weights(imgs.shape[-1], is_u8, imgs.device)
+    if imgs.is_cuda:
+        w.record_stream(torch.cuda.current_stream(imgs.device))
     return (imgs.to(torch.float32) @ w).add_(BLACK_VALUE)
 
 

@@ -346,6 +346,57 @@ def test_crnn_pipeline_on_card_launches_the_kernel_twice_per_batch():
     assert gru.bigru_sequence.launches == before + 2 * -(-n_lines // 4)
 
 
+def _bench_module():
+    """``bench_torch.bench`` of this checkout (its loaders of the committed
+    inputs)."""
+    import sys
+    from pathlib import Path
+
+    repo = str(Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, repo)
+    try:
+        from bench_torch import bench
+    finally:
+        sys.path.remove(repo)
+    return bench
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["hbm", "lowbw"])
+def test_pipeline_launch_path_does_not_wait_for_the_card(transport):
+    # Between its explicit waits (the tables' and the labels' copies),
+    # nothing process_stream's threads call makes the host wait for the card.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ocrs_tpu_torch as ot
+    from ocrs_tpu_torch import native
+    from ocrs_tpu_torch.recognition import _HostCopies
+
+    native.require()
+    bench = _bench_module()
+    det, rec, alphabet = bench.load_models()
+    pages = bench.load_pages()[0][:4]  # 4 of the A4 pages at 300 dpi
+    pipe = ot.PagePipeline(det, rec, alphabet, max_lines_per_batch=bench.PIPELINE_MAX_LINES, transport=transport)
+    want = [r.text for r in pipe.process(pages)]
+    pipe.process_stream([pages] * 2)  # a warm pipeline
+    torch.cuda.synchronize()
+
+    def no_wait(fn):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    staged = no_wait(lambda: pipe._stage_pages(pages))
+    tables, scale = no_wait(lambda: pipe._detect_tables(staged))
+    copies = no_wait(lambda: _HostCopies((tables,)))
+    lines = pipe._layout_group(*pipe._tables_to_words_arrays(copies, scale))
+    inflight = no_wait(lambda: pipe._dispatch_recognition(staged, lines))
+    texts = pipe._collect_recognition(lines, inflight)
+    assert ["\n".join(str(t) for t in page if t is not None) for page in texts] == want
+
+
 def _serve_models():
     from pathlib import Path
 
