@@ -2239,8 +2239,29 @@ def bench_phase(dev):
     from bench_torch import bench
 
     t_phase = time.perf_counter()
+    # The graph cache's counts over config 5's traced pass, read from its
+    # pipeline just before and just after the pass.
+    traced_graphs, timeline_pass = {}, bench.timeline_pass
+
+    def counted_timeline_pass(pipe, *args, **kwargs):
+        before = pipe.graph_stats()
+        try:
+            return timeline_pass(pipe, *args, **kwargs)
+        finally:
+            after = pipe.graph_stats()
+            traced_graphs.update({k: after[k] - before[k] for k in ("graph_captures", "graph_replays", "eager_batches")})
+            traced_graphs.update({k: after[k] for k in ("graphs", "input_buffer_bytes", "pool_bytes")})
+
+    bench.timeline_pass = counted_timeline_pass
+    try:
+        config5 = bench.config5(dev, warmup_groups=1, passes=1, groups_per_pass=3, compute_passes=1, profile_groups=1)
+    finally:
+        bench.timeline_pass = timeline_pass
+    print(f"config5 traced pass graphs: {json.dumps(traced_graphs)}", flush=True)
+    check(traced_graphs.get("graph_replays", 0) >= 4 * 3, f"bench: config 5's traced pass replays graphs ({traced_graphs})")
+    config5["traced_pass_graphs"] = traced_graphs
     report = {
-        "config5": bench.config5(dev, warmup_groups=1, passes=1, groups_per_pass=3, compute_passes=1, profile_groups=1),
+        "config5": config5,
         "config1": bench.config1(dev, calls=20, stage_calls=3),
         "config4": bench.config4(dev, n_iter=2, n_rep=1),
     }
@@ -2275,13 +2296,13 @@ def launch_path_syncs(dev, bench) -> dict:
     import torch
 
     from ocrs_tpu_torch import PagePipeline
-    from ocrs_tpu_torch.recognition import _HostCopies
 
     det, rec, alphabet = bench.load_models()
     pages, _ = bench.load_pages()
     pipe = PagePipeline(det, rec, alphabet, max_lines_per_batch=bench.PIPELINE_MAX_LINES, device=dev)
-    want = [r.text for r in pipe.process(pages)]
-    pipe.process_stream([pages])
+    want = [r.text for r in pipe.process(pages)]  # eager: process does not graph
+    pipe.process_stream([pages] * 2)  # each key's first sight eager, its second captured
+    check(pipe.graph_stats()["graph_captures"] >= 2, f"bench: the warm-up captured the graphs ({pipe.graph_stats()})")
     torch.cuda.synchronize()
     host_ms = {}
 
@@ -2294,17 +2315,18 @@ def launch_path_syncs(dev, bench) -> dict:
             torch.cuda.set_sync_debug_mode(0)
             host_ms[name] = (time.perf_counter() - t0) * 1e3
 
-    def detect():
-        tables, scale = pipe._detect_tables(staged)
-        return _HostCopies((tables,)), scale
-
     staged = no_wait("stage_pages", lambda: pipe._stage_pages(pages))
-    copies, scale = no_wait("detect_launch", detect)
+    before = pipe.graph_stats()
+    copies, scale = no_wait("detect_launch", lambda: pipe._detect_tables(staged, graphs=True))
     lines = pipe._layout_group(*pipe._tables_to_words_arrays(copies, scale))
-    inflight = no_wait("dispatch_recognition", lambda: pipe._dispatch_recognition(staged, lines))
+    inflight = no_wait("dispatch_recognition", lambda: pipe._dispatch_recognition(staged, lines, graphs=True))
     texts = ["\n".join(str(t) for t in page if t is not None) for page in pipe._collect_recognition(lines, inflight)]
     print("launch_path_syncs: 0", flush=True)  # a wait would have raised above
+    after = pipe.graph_stats()
     check(texts == want, "bench: the group taken step by step reads what process reads")
+    check(after["graph_captures"] == before["graph_captures"]
+          and after["graph_replays"] - before["graph_replays"] == 1 + len(inflight),
+          f"bench: the error-mode window replays warm graphs and captures none ({before} -> {after})")
 
     # The U-Net's self time in a traced pass long enough for steady windows.
     groups = [pages] * 6
@@ -2312,11 +2334,14 @@ def launch_path_syncs(dev, bench) -> dict:
     results = pipe.process_stream(groups)
     torch.cuda.synchronize()
     pages_per_sec = len(groups) * len(pages) / (time.perf_counter() - t0)
+    check([r.text for group in results for r in group] == want * len(groups),
+          "bench: a graphed process_stream reads the eager path's texts")
     timeline = bench.timeline_pass(pipe, groups, dev, results, [pages_per_sec])
     detect_net = timeline["host_ms_per_group"][threading.current_thread().name]["detect_net"]
     print(f"detect_net self ms a group (traced pass, windows 1-3 of 6): {detect_net}", flush=True)
     check(timeline["texts_equal_timed_pass"], "bench: the launch-path pipeline's traced pass reads its untraced pass's texts")
-    return {"host_ms": host_ms, "syncs": 0, "detect_net_self_ms": detect_net, "pages_per_sec_untimed": pages_per_sec}
+    return {"host_ms": host_ms, "syncs": 0, "graphs_in_window": {k: after[k] - before[k] for k in ("graph_captures", "graph_replays")},
+            "detect_net_self_ms": detect_net, "pages_per_sec_untimed": pages_per_sec, "graph_stats": pipe.graph_stats()}
 
 
 def main() -> int:

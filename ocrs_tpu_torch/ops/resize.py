@@ -48,6 +48,22 @@ DEVICE_CACHE_BYTES = 256 << 20
 _device_cache: dict[tuple[int, int, torch.device], torch.Tensor] = {}
 _device_cache_bytes = 0
 _device_cache_lock = threading.Lock()
+_retained = threading.local()
+
+
+@contextlib.contextmanager
+def retain_device_matrices():
+    """Yields a list that collects every device matrix this thread's calls
+    of :func:`_device_interp_matrix` return while inside. A CUDA graph
+    captured meanwhile reads those matrices by address, so its owner keeps
+    the list: a matrix the cache drops later stays alive for the graph."""
+    kept: list[torch.Tensor] = []
+    outer = getattr(_retained, "kept", None)
+    _retained.kept = kept
+    try:
+        yield kept
+    finally:
+        _retained.kept = outer
 
 
 def _device_interp_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
@@ -69,6 +85,9 @@ def _device_interp_matrix(in_size: int, out_size: int, device: torch.device) -> 
         with torch.inference_mode(False):
             m = torch.from_numpy(_interp_matrix(in_size, out_size)).to(device)
         _cache_insert(key, m)
+    kept = getattr(_retained, "kept", None)
+    if kept is not None:
+        kept.append(m)
     return m
 
 

@@ -21,6 +21,30 @@ Host waits per page group: 1 (the table) + one per recognition batch, each
 for a copy started long before. PyTorch runs eagerly, so the JAX pipeline's
 fused ``jit`` programs and their fallbacks have no counterpart.
 
+In :meth:`PagePipeline.process_stream` on a card the detector (its input
+to its tables) and each axis-aligned recognition batch (its geometry to its
+decode outputs) run as CUDA graphs (:class:`..utils.graphs.GraphCache`, one
+per pipeline and per shard, with one memory pool): a key (the shapes and the
+branches) is run eagerly when first seen, captured when seen again, and
+replayed from then on, so a page group reaches the card as a few replays and
+copies in place of some 1,300 launches. There the host runs groups ahead of
+the card and its launches set the pace. ``process`` and
+``process_normalized`` (one group, then its results: the batching service)
+run the same bodies eagerly: there the launches overlap the card's work on
+the group, and graphs bought the service nothing while holding a pool per
+page-stack shape and capturing in a request's path. The work is the same function either way (``_detect_graph_body``,
+``_rec_graph_body``), run by the cache. A capture or replay that fails
+raises. What stays eager: the CPU
+(where the tests run; its path and results are those without graphs), the
+"lowbw" transport, tiled detection, rotated and vertical batches
+(``_run_pooled_batch_rotated``), the device labelling of
+``run_table_geometry=False`` (its loops read a flag back every pass; the
+U-Net before it is graphed), models other than the port's U-Net and
+ConvCTC modules (fakes, a caller's own, and the CRNN, whose hand-written
+GRU kernel counts its launches on the host, where a replay would not), and
+keys beyond the cache's bound. The engine (:class:`..engine.OcrEngine`)
+does not graph: its labelling reads a flag back every sweep.
+
 ``mesh=`` (a :class:`.sharding.DataMesh`) shards each page group over
 several devices, as the JAX pipeline's ``mesh`` shards it over a ``"data"``
 axis: the group is cut into one contiguous slice per mesh entry (an uneven
@@ -34,6 +58,8 @@ per shard. Results come back in page order.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, wait
@@ -56,7 +82,9 @@ from ..layout import (
     is_vertical_line,
     merge_vertical_chains,
 )
+from ..models.detection_net import DetectionModel
 from ..models.protocol import Model, fixed_height_or, fixed_hw
+from ..models.recognition_net import RecognitionModel
 from ..ops.connected_components import label_components_device, label_components_multigrid
 from ..ops.ctc import (
     BEAM_EMISSION_GAP,
@@ -102,6 +130,7 @@ from ..recognition import (
     single_bucket,
 )
 from ..text_items import TextLine
+from ..utils.graphs import GraphCache
 from ..utils.log import warn
 from ..utils.tracing import NO_TRACE, StageTimer, TimelineRecorder
 from .sharding import DataMesh, replicate, shard_batch_dim, split_batch_dim
@@ -454,6 +483,12 @@ class PagePipeline:
         # that a group's upload runs beside the device work of the groups
         # before it.
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        # CUDA graphs of the detector and of the axis-aligned recognition
+        # batches in process_stream (see the module docstring); on the CPU
+        # the cache runs everything eagerly.
+        self._graphs = GraphCache(self.device)
+        self._graph_det = isinstance(detection_model, DetectionModel)
+        self._graph_rec = isinstance(recognition_model, RecognitionModel) and recognition_model.arch != "crnn"
         # Label i (>=1) maps to alphabet[i-1]; labels outside the allowed set
         # are excluded (lib.rs:153-170).
         self._excluded_onehot: Optional[torch.Tensor] = None
@@ -488,6 +523,18 @@ class PagePipeline:
                 for i in range(len(self._shards))
             ]
 
+    def graph_stats(self) -> dict:
+        """The graph cache's counts since construction (``graph_captures``,
+        ``graph_replays``, ``eager_batches``), the graphs it holds and the
+        bytes of their input buffers and memory pool; under a mesh, summed
+        over the shards."""
+        caches = [self._graphs] if self._shards is None else [shard._graphs for shard in self._shards]
+        total: dict = {}
+        for stats in (cache.stats() for cache in caches):
+            for k, v in stats.items():
+                total[k] = v if k not in total else (None if v is None or total[k] is None else total[k] + v)
+        return total
+
     def _transport_mode(self) -> str:
         """Resolve "auto" to "hbm"/"lowbw" (probing the link on first call)."""
         if self._transport == "auto":
@@ -505,11 +552,16 @@ class PagePipeline:
 
     # -- detection ------------------------------------------------------------
 
-    def _detect_tables(self, pages_dev, trace=NO_TRACE):
-        """Staged pages -> (table tensor for the group, (sx, sy) from table
-        to page coordinates). `trace` spans the detector's input
-        (``detect_pre``), the network (``detect_net``) and the tables
-        (``detect_post``)."""
+    def _detect_tables(self, pages_dev, trace=NO_TRACE, graphs: bool = False):
+        """Staged pages -> (the group's table, its copy to the host started
+        (:class:`_HostCopies`), (sx, sy) from table to page coordinates).
+        Untiled, the detector runs :meth:`_detect_graph_body` through the
+        graph cache: as a graph where `graphs` asks for one and the detector
+        can be graphed, else eagerly. `trace` spans the
+        detector's input (``detect_pre``), the network and the run tables
+        (``detect_net``, through a graph the input's copy and the replay)
+        and what follows (``detect_post``: the tables' copy to the host, and
+        the labelling of ``run_table_geometry=False``)."""
         if isinstance(pages_dev, _HostPages):
             # The detector-resolution upload of the low-bandwidth transport:
             # same tables and the same (page/crop) scale law as below.
@@ -521,32 +573,64 @@ class PagePipeline:
             _, page_h, page_w = pages_dev.shape
             in_h, in_w = self._det_hw
             if self._tiled and (page_h > in_h or page_w > in_w):
-                return self._detect_tables_tiled(pages_dev)
+                tables, scale = self._detect_tables_tiled(pages_dev)
+                return _HostCopies((tables,)), scale
             pad_bottom, pad_right = max(in_h - page_h, 0), max(in_w - page_w, 0)
             with trace.span("detect_pre"):
                 x = _detect_pre_batch(pages_dev, input_hw=self._det_hw, pads=(pad_bottom, pad_right))
-        crop_h, crop_w = self._det_hw[0] - pad_bottom, self._det_hw[1] - pad_right
-        with trace.span("detect_net"):
-            probs = self._det.run(x)
-        with trace.span("detect_post"):
-            if self._run_tables:
-                tables = _masks_to_run_tables(
-                    probs,
-                    crop_hw=(crop_h, crop_w),
-                    threshold=self._params.text_threshold,
-                    multigrid=self._multigrid,
-                    solidify=self._solidify,
-                )
-            else:
-                tables = _masks_to_tables(
-                    probs,
-                    crop_hw=(crop_h, crop_w),
-                    threshold=self._params.text_threshold,
-                    max_components=self._max_components,
-                    multigrid=self._multigrid,
-                    solidify=self._solidify,
-                )
-        return tables, (page_w / crop_w, page_h / crop_h)
+        crop_hw = (self._det_hw[0] - pad_bottom, self._det_hw[1] - pad_right)
+
+        def finish(out):
+            # Through a graph the tables are its output in the shared pool:
+            # their copy to pinned memory is queued on this stream right
+            # after the replay, so the next replay (the next group's
+            # detector, or a recognition batch), queued later on the same
+            # stream, cannot overwrite them before the copy has read them.
+            return _HostCopies((out if self._run_tables else self._label_tables(out, crop_hw),))
+
+        graphed = graphs and self._graph_det and not isinstance(pages_dev, _HostPages)
+        copies = self._graphs.run(
+            self._detect_graph_key(x, crop_hw) if graphed else None,
+            functools.partial(self._detect_graph_body, crop_hw=crop_hw),
+            {"detect_input": x},
+            finish,
+            trace,
+            run_span="detect_net",
+            finish_span="detect_post",
+        )
+        return copies, (page_w / crop_hw[1], page_h / crop_hw[0])
+
+    def _detect_graph_body(self, x: torch.Tensor, *, crop_hw) -> torch.Tensor:
+        """What the detector's graph runs, as a plain function of its input:
+        the U-Net and the run tables, or the U-Net alone where the tables
+        are labelled on the device (:meth:`_label_tables`, whose loops read
+        a flag back every pass, which no graph can hold)."""
+        probs = self._det.run(x)
+        if not self._run_tables:
+            return probs
+        return _masks_to_run_tables(
+            probs,
+            crop_hw=crop_hw,
+            threshold=self._params.text_threshold,
+            multigrid=self._multigrid,
+            solidify=self._solidify,
+        )
+
+    def _label_tables(self, probs: torch.Tensor, crop_hw) -> torch.Tensor:
+        """The detector's probabilities -> rect tables labelled and fitted on
+        the device (``run_table_geometry=False``)."""
+        return _masks_to_tables(
+            probs,
+            crop_hw=crop_hw,
+            threshold=self._params.text_threshold,
+            max_components=self._max_components,
+            multigrid=self._multigrid,
+            solidify=self._solidify,
+        )
+
+    def _detect_graph_key(self, x: torch.Tensor, crop_hw) -> tuple:
+        """Everything the detector's graph's shapes and branches depend on."""
+        return ("detect", tuple(x.shape), x.dtype, tuple(crop_hw), self._run_tables, self._multigrid, self._solidify)
 
     def _detect_tables_tiled(self, pages_dev: torch.Tensor):
         """Tiled detection at page resolution: every page's overlapping
@@ -696,9 +780,12 @@ class PagePipeline:
 
     # -- recognition ----------------------------------------------------------
 
-    def _dispatch_recognition(self, pages_dev, per_page_lines: list[list[list[RotatedRect]]], trace=NO_TRACE):
+    def _dispatch_recognition(
+        self, pages_dev, per_page_lines: list[list[list[RotatedRect]]], trace=NO_TRACE, graphs: bool = False
+    ):
         """Start every recognition batch of the group and its copy to the
-        host; nothing is waited for."""
+        host; nothing is waited for. `graphs`: run the axis-aligned batches
+        as graphs where they can be graphed."""
         with trace.span("rec_prep"):
             # Pooled line records tagged (page, line_index): polygons and
             # union rects for ALL lines in the group come from one vectorized
@@ -754,12 +841,22 @@ class PagePipeline:
 
         greedy = isinstance(self._decode, Greedy)
         inflight = []
-        for group_width, batch, rotated in batches:
-            if self._debug:
-                print(f"Processing group of {len(batch)} lines of width {group_width}")
-            with_conf = any(rl.variant >= 0 for _, rl in batch)
-            run = self._run_pooled_batch_rotated if rotated else self._run_pooled_batch
-            inflight.append((group_width, batch, run(pages_dev, batch, group_width, greedy, with_conf, trace)))
+        # A graph reads its inputs at the addresses it was captured with:
+        # the group's page stack is copied into the cache's fixed buffer,
+        # once a group, and the axis-aligned batches crop from there.
+        graphs = graphs and self._graph_rec and not isinstance(pages_dev, _HostPages)
+        fixed = graphs and any(not r for _, _, r in batches)
+        with (self._graphs.fixed_input("pages", pages_dev, trace, span="rec_crops") if fixed
+              else contextlib.nullcontext(pages_dev)) as pages_fixed:
+            for group_width, batch, rotated in batches:
+                if self._debug:
+                    print(f"Processing group of {len(batch)} lines of width {group_width}")
+                with_conf = any(rl.variant >= 0 for _, rl in batch)
+                if rotated:
+                    out = self._run_pooled_batch_rotated(pages_dev, batch, group_width, greedy, with_conf, trace)
+                else:
+                    out = self._run_pooled_batch(pages_fixed, batch, group_width, greedy, with_conf, trace, graphs)
+                inflight.append((group_width, batch, out))
         return inflight
 
     def _collect_recognition(self, per_page_lines, inflight, trace=NO_TRACE) -> list[list[Optional[TextLine]]]:
@@ -819,10 +916,10 @@ class PagePipeline:
             trace.count("content_columns", int(np.minimum(widths, group_width).sum()))
             trace.count("padded_columns", n_pad * group_width)
 
-    def _run_pooled_batch(self, pages_dev, batch, group_width, greedy, with_conf, trace=NO_TRACE):
+    def _run_pooled_batch(self, pages_dev, batch, group_width, greedy, with_conf, trace=NO_TRACE, graphs=False):
         """Axis-aligned crops of one pooled batch -> the device outputs of
         :meth:`_rec_decode_tail`, cut to the batch's lines, their copy to
-        the host started."""
+        the host started; as a graph where `graphs` asks for one."""
         n = len(batch)
         n_pad = _pad_batch_size(n, self._max_lines)
 
@@ -841,51 +938,75 @@ class PagePipeline:
             chains[n:] = chains[n - 1 : n]
         self._count_columns(trace, n_pad, group_width, geom[4, :n])
         with trace.span("rec_launch"), trace.card("card.recognize"):
+            if not isinstance(pages_dev, _HostPages):
+                # The crops, the recognizer and the decode head through the
+                # graph cache (eagerly where they are not graphed); the
+                # page stack is the group's fixed buffer
+                # (_dispatch_recognition), the geometry is uploaded.
+                return self._graphs.run(
+                    self._rec_graph_key(pages_dev, n_pad, group_width, greedy, with_conf)
+                    if graphs and self._graph_rec
+                    else None,
+                    functools.partial(self._rec_graph_body, out_w=group_width, greedy=greedy, with_conf=with_conf),
+                    {"pages": pages_dev, "geom": geom, "chains": chains},
+                    lambda out: _HostCopies(tuple(None if t is None else t[:n] for t in out)),
+                    trace,
+                    load_span="rec_crops",
+                    run_span="rec_net",
+                )
             with trace.span("rec_crops"):
-                if isinstance(pages_dev, _HostPages):
-                    # Low-bandwidth transport: extract and resize the crops on the
-                    # host from the full-resolution pages that never left it, and
-                    # upload them STRIP-PACKED: every line at its own resized width,
-                    # side by side along the column axis (native.extract_lines_strip),
-                    # without the padding to the batch's widest line. The device
-                    # gathers each line's window back out of the strip, applies the
-                    # bit-identical polygon/in-page/width mask from the geometry
-                    # (ops/warp.strip_mask_normalize_crops) and normalizes.
-                    _, page_h, page_w = pages_dev.host.shape
-                    geom[4, n:] = 0.0  # padding lines: rwidth 0 -> fully masked BLACK
-                    n_cols = np.clip(geom[4].astype(np.int64), 0, group_width)
-                    segs = ((n_cols + 1) // 2) * 2  # even: pack4 segments own bytes
-                    offs = np.zeros(n_pad, np.int32)
-                    np.cumsum(segs[:-1], out=offs[1:])
-                    # The strip length in steps of 4,096, so that shapes repeat
-                    # across groups.
-                    total_w = max(int(offs[-1] + segs[-1]), 2)
-                    total_w = ((total_w + 4095) // 4096) * 4096
-                    strip_host = native.extract_lines_strip(
-                        pages_dev.host, geom, offs, out_h=self._rec_h, total_w=total_w, pack4=pages_dev.pack4
-                    )
-                    if strip_host is None:
-                        native.require()
-                    crops = strip_mask_normalize_crops(
-                        _to_device(strip_host, self.device),
-                        _to_device(offs, self.device),
-                        _to_device(geom, self.device),
-                        _to_device(chains, self.device),
-                        page_hw=(page_h, page_w),
-                        pack4=pages_dev.pack4,
-                        out_w=group_width,
-                    )
-                else:
-                    crops = extract_line_batch_packed(
-                        pages_dev,
-                        _to_device(geom, self.device),
-                        _to_device(chains, self.device),
-                        out_h=self._rec_h,
-                        out_w=group_width,
-                    )
+                # Low-bandwidth transport: extract and resize the crops on the
+                # host from the full-resolution pages that never left it, and
+                # upload them STRIP-PACKED: every line at its own resized width,
+                # side by side along the column axis (native.extract_lines_strip),
+                # without the padding to the batch's widest line. The device
+                # gathers each line's window back out of the strip, applies the
+                # bit-identical polygon/in-page/width mask from the geometry
+                # (ops/warp.strip_mask_normalize_crops) and normalizes.
+                _, page_h, page_w = pages_dev.host.shape
+                geom[4, n:] = 0.0  # padding lines: rwidth 0 -> fully masked BLACK
+                n_cols = np.clip(geom[4].astype(np.int64), 0, group_width)
+                segs = ((n_cols + 1) // 2) * 2  # even: pack4 segments own bytes
+                offs = np.zeros(n_pad, np.int32)
+                np.cumsum(segs[:-1], out=offs[1:])
+                # The strip length in steps of 4,096, so that shapes repeat
+                # across groups.
+                total_w = max(int(offs[-1] + segs[-1]), 2)
+                total_w = ((total_w + 4095) // 4096) * 4096
+                strip_host = native.extract_lines_strip(
+                    pages_dev.host, geom, offs, out_h=self._rec_h, total_w=total_w, pack4=pages_dev.pack4
+                )
+                if strip_host is None:
+                    native.require()
+                crops = strip_mask_normalize_crops(
+                    _to_device(strip_host, self.device),
+                    _to_device(offs, self.device),
+                    _to_device(geom, self.device),
+                    _to_device(chains, self.device),
+                    page_hw=(page_h, page_w),
+                    pack4=pages_dev.pack4,
+                    out_w=group_width,
+                )
             with trace.span("rec_net"):
                 out = self._rec_decode_tail(crops, greedy, with_conf)
                 return _HostCopies(tuple(None if t is None else t[:n] for t in out))
+
+    def _rec_graph_body(self, pages, geom, chains, *, out_w: int, greedy: bool, with_conf: bool):
+        """What an axis-aligned recognition batch's graph runs, as a plain
+        function of its inputs (the page stack, the batch's geometry and
+        polygon chains on the device): the crops, the recognizer and the
+        decode head -> :meth:`_rec_decode_tail`'s outputs for every slot."""
+        crops = extract_line_batch_packed(pages, geom, chains, out_h=self._rec_h, out_w=out_w)
+        return self._rec_decode_tail(crops, greedy, with_conf)
+
+    def _rec_graph_key(self, pages, n_pad: int, out_w: int, greedy: bool, with_conf: bool) -> tuple:
+        """Everything an axis-aligned recognition batch's graph's shapes and
+        branches depend on."""
+        beam_k = None if greedy else beam_candidate_k(self._decode.width, len(self._alphabet) + 1)
+        return (
+            "recognize", n_pad, out_w, tuple(pages.shape), pages.dtype, greedy, beam_k, with_conf,
+            self._min_conf is not None, self._excluded_onehot is not None,
+        )
 
     def _run_pooled_batch_rotated(self, pages_dev, batch, group_width, greedy, with_conf, trace=NO_TRACE):
         """Deskew/vertical batches: crops sampled along each line's rotated
@@ -1103,14 +1224,20 @@ class PagePipeline:
         ``detect_launch`` holding ``detect_pre``, ``detect_net`` and
         ``detect_post``; ``dispatch`` holding ``tables_to_words`` >
         ``tables_wait``, ``layout``, ``rec_prep`` and per batch
-        ``rec_geometry`` and ``rec_launch`` > ``rec_crops``, ``rec_net``;
-        ``collect`` holding per batch ``labels_wait`` and ``ctc_collapse``,
-        then ``line_assembly`` and ``page_results``) and on the staging
+        ``rec_geometry`` and ``rec_launch`` > ``rec_crops`` (the inputs'
+        upload or copy), ``rec_net`` (the crops, the recognizer and the
+        decode head, or their replay), and on a card one ``rec_crops`` for
+        the group's page copy; ``collect`` holding per batch
+        ``labels_wait`` and ``ctc_collapse``, then ``line_assembly`` and
+        ``page_results``) and on the staging
         thread (``stage``), and the interpreter's collections (``gc``); on a card
         the intervals ``card.stage`` (copy stream), ``card.detect`` and
         per batch ``card.recognize`` (this thread's stream); and the counts
         ``pages``, ``words``, ``lines``, ``batches``, ``line_slots``,
-        ``content_columns`` and ``padded_columns``. The results are the same
+        ``content_columns`` and ``padded_columns``, and on a card
+        ``graph_replays``, ``graph_captures`` (a capture is followed by its
+        first replay) and ``eager_batches`` (detector calls and recognition
+        batches whose key is not captured yet). The results are the same
         with and without it."""
         if self._shards is not None:
             return self._process_stream_sharded(page_batches, recorder)
@@ -1130,8 +1257,8 @@ class PagePipeline:
                 g, pages = staged.pop(0)
                 trace = rec.group(g)
                 with trace.span("detect_launch"), trace.card("card.detect"):
-                    tables, scale = self._detect_tables(pages, trace)
-                    detected.append((g, pages, _HostCopies((tables,)), scale))
+                    tables, scale = self._detect_tables(pages, trace, graphs=True)
+                    detected.append((g, pages, tables, scale))
 
         ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"{threading.current_thread().name}-stage")
 
@@ -1183,7 +1310,7 @@ class PagePipeline:
             with trace.span("tables_to_words"):
                 per_page_words, per_arrays = self._tables_to_words_arrays(tables, scale, trace)
             per_page_lines = self._layout_group(per_page_words, per_arrays, trace)
-            inflight = self._dispatch_recognition(pages_dev, per_page_lines, trace)
+            inflight = self._dispatch_recognition(pages_dev, per_page_lines, trace, graphs=True)
         return per_page_words, per_page_lines, inflight
 
     def _collect_group(self, group: tuple, trace=NO_TRACE) -> list[PageResult]:

@@ -6,6 +6,7 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -389,12 +390,162 @@ def test_pipeline_launch_path_does_not_wait_for_the_card(transport):
             torch.cuda.set_sync_debug_mode(0)
 
     staged = no_wait(lambda: pipe._stage_pages(pages))
-    tables, scale = no_wait(lambda: pipe._detect_tables(staged))
-    copies = no_wait(lambda: _HostCopies((tables,)))
+    before = pipe.graph_stats()
+    copies, scale = no_wait(lambda: pipe._detect_tables(staged, graphs=True))
+    assert isinstance(copies, _HostCopies)
     lines = pipe._layout_group(*pipe._tables_to_words_arrays(copies, scale))
-    inflight = no_wait(lambda: pipe._dispatch_recognition(staged, lines))
+    inflight = no_wait(lambda: pipe._dispatch_recognition(staged, lines, graphs=True))
     texts = pipe._collect_recognition(lines, inflight)
     assert ["\n".join(str(t) for t in page if t is not None) for page in texts] == want
+    after = pipe.graph_stats()
+    assert after["graph_captures"] == before["graph_captures"]
+    if transport == "hbm":  # warm graph replays, the detector and every batch
+        assert after["graph_replays"] - before["graph_replays"] == 1 + len(inflight)
+    else:  # the low-bandwidth transport stays eager
+        assert after["graph_replays"] == before["graph_replays"] == 0
+
+
+def _pair_graph_runs_with_direct_calls(pipe) -> list:
+    """From now on every run of `pipe`'s graph cache with a key is paired
+    with its body called directly on the same inputs just before it, both
+    consumed by the run's `finish`: the list gets (key, whether the run
+    replayed a graph, the direct call's outputs, the run's outputs)."""
+    cache, run = pipe._graphs, pipe._graphs.run
+    pairs = []
+
+    def paired(key, body, inputs, finish, *args, **kwargs):
+        if key is None:
+            return run(key, body, inputs, finish, *args, **kwargs)
+        direct = finish(body(*(
+            torch.from_numpy(v).to(cache.device) if isinstance(v, np.ndarray) else v for v in inputs.values()
+        )))
+        replays = cache.replays
+        got = run(key, body, inputs, finish, *args, **kwargs)
+        pairs.append((key, cache.replays > replays, direct, got))
+        return got
+
+    cache.run = paired
+    return pairs
+
+
+@pytest.mark.cuda
+def test_pipeline_graph_replays_equal_eager_runs_bit_for_bit():
+    # Three groups in flight (the detector two ahead), batches of two widths
+    # or more: every replay's run tables, greedy labels and confidences
+    # equal those of the same body called directly on the same inputs, bit
+    # for bit, in the pass that captures and in the passes that only
+    # replay. The first capture is made while the staging thread uploads
+    # the next group.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+
+    import ocrs_tpu_torch as ot
+
+    bench = _bench_module()
+    det, rec, alphabet = bench.load_models()
+    pages = bench.load_pages()[0][:4]  # 4 of the A4 pages at 300 dpi
+    groups = [pages, pages[::-1].copy(), pages]
+    pipe = ot.PagePipeline(det, rec, alphabet, max_lines_per_batch=32, min_line_confidence=1e-6)
+    pairs = _pair_graph_runs_with_direct_calls(pipe)
+    in_capture, staging_looping = threading.Event(), threading.Event()
+    uploads_in_capture, stage_calls = [], []
+    stage, capture = pipe._stage_pages, pipe._graphs._capture
+
+    def stage_hook(pages):
+        stage_calls.append(1)
+        if len(stage_calls) == 3:  # group 2's staging: upload while group 1's detector is captured
+            assert in_capture.wait(120)
+            staging_looping.set()
+            while in_capture.is_set():
+                stage(pages)
+                uploads_in_capture.append(1)
+        return stage(pages)
+
+    def capture_hook(*args):
+        if not in_capture.is_set() and not uploads_in_capture:
+            in_capture.set()
+            try:
+                assert staging_looping.wait(120)
+                return capture(*args)
+            finally:
+                in_capture.clear()
+        return capture(*args)
+
+    pipe._stage_pages, pipe._graphs._capture = stage_hook, capture_hook
+    texts = [[r.text for r in group] for group in pipe.process_stream(groups)]
+    first = pipe.graph_stats()
+    assert uploads_in_capture and first["graph_captures"] >= 2 and first["graph_replays"] >= first["graph_captures"]
+    # A key seen once in the first pass is captured in the second; the third
+    # only replays.
+    texts_again = [[r.text for r in group] for group in pipe.process_stream(groups)]
+    before, runs = pipe.graph_stats(), len(pairs)
+    texts_third = [[r.text for r in group] for group in pipe.process_stream(groups)]
+    second = pipe.graph_stats()
+    assert second["graph_captures"] == before["graph_captures"] and second["eager_batches"] == before["eager_batches"]
+    assert all(replayed for _, replayed, _, _ in pairs[runs:]) and len(pairs) - runs > len(groups)
+    assert second["graph_replays"] - before["graph_replays"] == len(pairs) - runs
+    assert texts == texts_again == texts_third
+    assert sum(replayed for _, replayed, _, _ in pairs) == second["graph_replays"]
+    for key, _, direct, got in pairs:
+        want, have = direct.numpy(), got.numpy()
+        assert [x is None for x in have] == [x is None for x in want], key
+        for x, y in zip(have, want):
+            if x is not None:
+                np.testing.assert_array_equal(x, y, err_msg=str(key))  # tables, labels, confidences: bit for bit
+    widths = {key[2] for key in pipe._graphs._graphs if key[0] == "recognize"}
+    assert len(widths) >= 2, widths
+    assert second["pool_bytes"] is None or second["pool_bytes"] > 0
+
+    # Warm replays make the host wait for nothing.
+    del pipe._graphs.run  # the cache's own run again
+    staged = pipe._stage_pages(pages)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        copies, scale = pipe._detect_tables(staged, graphs=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    lines = pipe._layout_group(*pipe._tables_to_words_arrays(copies, scale))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inflight = pipe._dispatch_recognition(staged, lines, graphs=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    pipe._collect_recognition(lines, inflight)
+    third = pipe.graph_stats()
+    assert third["graph_captures"] == second["graph_captures"]
+    assert third["graph_replays"] - second["graph_replays"] == 1 + len(inflight)
+
+
+@pytest.mark.cuda
+def test_pipeline_reads_a_page_stack_refilled_in_place():
+    # process_stream over one device tensor that the caller refills between
+    # calls, with every graph warm: the call after the refill replays the
+    # same graphs and reads the new pages. process_normalized, one group at
+    # a time, runs eagerly and leaves the cache untouched.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ocrs_tpu_torch as ot
+
+    bench = _bench_module()
+    det, rec, alphabet = bench.load_models()
+    pages = bench.load_pages()[0][:4]  # 4 of the A4 pages at 300 dpi
+    refill = pages[::-1].copy()  # the same lines in another page order: the same graphs
+    pipe = ot.PagePipeline(det, rec, alphabet, max_lines_per_batch=bench.PIPELINE_MAX_LINES)
+    want = [r.text for r in pipe.process_normalized(pipe._stage_pages(refill))]
+    assert pipe.graph_stats()["graph_replays"] == pipe.graph_stats()["eager_batches"] == 0
+    stack = pipe._stage_pages(pages)
+    first = [r.text for r in pipe.process_stream([stack])[0]]
+    assert first != want
+    for _ in range(2):  # captured, then replayed
+        assert [r.text for r in pipe.process_stream([stack])[0]] == first
+    before = pipe.graph_stats()
+    stack.copy_(pipe._stage_pages(refill))
+    assert [r.text for r in pipe.process_stream([stack])[0]] == want
+    after = pipe.graph_stats()
+    assert after["graph_captures"] == before["graph_captures"] and after["eager_batches"] == before["eager_batches"]
+    assert after["graph_replays"] - before["graph_replays"] >= 2
 
 
 def _serve_models():

@@ -29,6 +29,14 @@ one per stream; Perfetto opens it), and the object gets ``timeline``, their
 before its last two where there are more than three. ``--bench-pages``
 takes the benchmark's 16 committed pages (``bench_torch/data/
 pages_a4_p16.npz``, config 5's group) in place of the drawn ones.
+
+``host_launches_per_group`` splits what the host issued to the card under
+the profiler, a group, into CUDA graph replays (``cudaGraphLaunch``) and
+eager launches and copies (kernel launches, ``cudaMemcpyAsync``,
+``cudaMemsetAsync``), each with its count and the host's self ms in those
+calls; ``graph_stats`` has the pipeline's graph cache counts over the
+profiled stream (``PagePipeline.graph_stats``; None for a checkout
+without them).
 """
 
 from __future__ import annotations
@@ -42,6 +50,26 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
+
+#: The calls that hand the card a kernel, a copy or a graph, as the
+#: profiler names them.
+GRAPH_LAUNCH = "cudaGraphLaunch"
+EAGER_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                  "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def host_launches(events, groups: int) -> dict:
+    """Counts and host self ms a group of the launch calls among the
+    profiler's `events` (``key_averages()``): graph replays, eager launches
+    and copies, and each call."""
+    by_call = {e.key: {"count": e.count / groups, "host_ms": e.self_cpu_time_total / 1e3 / groups}
+               for e in events if e.key == GRAPH_LAUNCH or e.key in EAGER_LAUNCHES}
+    eager = [v for k, v in by_call.items() if k != GRAPH_LAUNCH]
+    return {
+        "graph": by_call.get(GRAPH_LAUNCH, {"count": 0.0, "host_ms": 0.0}),
+        "eager": {"count": sum(v["count"] for v in eager), "host_ms": sum(v["host_ms"] for v in eager)},
+        "by_call": by_call,
+    }
 
 
 def write_timeline(path, record) -> None:
@@ -95,11 +123,19 @@ def main() -> int:
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     loop_counts.update(iterations=0, host_syncs=0)
+    # A checkout from before the graph cache has no counts to read.
+    read_graphs = getattr(pipe, "graph_stats", None)
+    graphs_before = read_graphs() if read_graphs else None
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         pipe.process_stream(groups)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    graph_stats = None
+    if read_graphs:
+        graphs_after = read_graphs()
+        graph_stats = {k: graphs_after[k] - graphs_before[k] for k in ("graph_captures", "graph_replays", "eager_batches")}
+        graph_stats.update({k: graphs_after[k] for k in ("graphs", "input_buffer_bytes", "pool_bytes")})
     if args.trace:
         Path(args.trace).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(args.trace) / f"pipeline_trace_shards{args.shards}.json"))
@@ -149,6 +185,8 @@ def main() -> int:
                 "device_time_s": device_s,
                 "device_busy_share_upper_bound": device_s / wall if device_s else None,
                 "kernels_and_copies_per_group": sum(r[1] for r in rows) / args.groups,
+                "host_launches_per_group": host_launches(prof.key_averages(), args.groups),
+                "graph_stats": graph_stats,
                 "loop_flag_reads_per_group": loop_counts["host_syncs"] / args.groups,
                 "top_kernels": [{"ms": r[0] / 1e3, "count": r[1], "name": r[2][:120]} for r in rows[:12]],
                 "top_host_ops": [{"ms": r[0] / 1e3, "count": r[1], "name": r[2][:120]} for r in host[:12]],

@@ -24,7 +24,10 @@ innermost last; the texts' SHA-256 over the timed passes; and the peak of
 ``torch.cuda.max_memory_allocated()`` over each of ``--passes`` passes of
 ``process_stream`` over the 6 groups of config 5 ordered by ``--seed``, with
 their pages per second (not the benchmark's figure: no bounds, and the first
-pass is the first over these arrays).
+pass is the first over these arrays), the peak of
+``torch.cuda.max_memory_reserved()`` (which holds the memory pool of the
+pipeline's CUDA graphs), and, where the pipeline has them, the graph cache's
+captures, replays and eager runs in the pass (``PagePipeline.graph_stats``).
 
 Last, ``launch_queue_depth``: how many small kernels the host can launch
 behind a kernel that holds the card for about a second before a launch
@@ -42,6 +45,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
+import inspect
 import json
 import os
 import sys
@@ -144,14 +148,20 @@ def main() -> int:
     staged = step("stage_pages", lambda: pipe._stage_pages(pages))
     torch.cuda.synchronize()
 
+    # The steps as process_stream runs them: through its graphs, where the
+    # root's pipeline has them (`graphs=True`).
+    graphs = {"graphs": True} if "graphs" in inspect.signature(pipe._detect_tables).parameters else {}
+
     def detect():
-        tables, scale = pipe._detect_tables(staged)
-        return _HostCopies((tables,)), scale
+        # The tables' copy to the host started, as process_stream starts it
+        # (a root whose _detect_tables returns the device tables: here).
+        tables, scale = pipe._detect_tables(staged, **graphs)
+        return (tables if isinstance(tables, _HostCopies) else _HostCopies((tables,))), scale
 
     copies, scale = step("detect_launch", detect)
     words = step("tables_to_words", lambda: pipe._tables_to_words_arrays(copies, scale))
     lines = step("layout", lambda: pipe._layout_group(*words))
-    inflight = step("dispatch_recognition", lambda: pipe._dispatch_recognition(staged, lines))
+    inflight = step("dispatch_recognition", lambda: pipe._dispatch_recognition(staged, lines, **graphs))
     step("collect_recognition", lambda: pipe._collect_recognition(lines, inflight))
     torch.cuda.synchronize()
     del staged, copies, inflight
@@ -159,9 +169,11 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     groups = [np.ascontiguousarray(pages[rng.permutation(len(pages))]) for _ in range(GROUPS_PER_PASS)]
     passes, digest = [], hashlib.sha256()
+    read_graphs = getattr(pipe, "graph_stats", None)  # None on a checkout without graphs
     for _ in range(args.passes):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        graphs_before = read_graphs() if read_graphs else None
         t0 = time.perf_counter()
         results = pipe.process_stream(groups)
         torch.cuda.synchronize()
@@ -169,9 +181,17 @@ def main() -> int:
         for group in results:
             for r in group:
                 digest.update(r.text.encode() + b"\0")
+        graphs = None
+        if read_graphs:
+            after = read_graphs()
+            graphs = {k: after[k] - graphs_before[k] for k in ("graph_captures", "graph_replays", "eager_batches")}
+            graphs["pool_bytes"] = after["pool_bytes"]
+            graphs["input_buffer_bytes"] = after["input_buffer_bytes"]
         passes.append({
             "pages_per_sec": len(groups) * len(pages) / seconds,
             "max_memory_allocated_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+            "max_memory_reserved_mib": torch.cuda.max_memory_reserved(dev) / 2**20,
+            "graphs": graphs,
         })
 
     queue = launch_queue_depth(dev)
